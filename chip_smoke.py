@@ -41,9 +41,15 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 # published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, and the
-# int32 rate as half the float32 lanes of the 67 TFLOP/s FMA figure
+# lane rate of one 64-lane/clk/SM integer pipe, half the float32 lanes of
+# the 67 TFLOP/s FMA figure (2 flops per FMA).  Integer work goes to two
+# such pipes at once: IMAD to the FMA pipe, shifts and logic
+# (SHF/LOP3/IADD3) to the INT32 ALU pipe; the busier pipe sets the floor.
 HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 67e12 / 2 / 2
+INT32_PIPE_OPS_PER_S = 67e12 / 2 / 2
+
+N_QUERIES = 64
+SEED = 0
 
 # kernel parity: ragged row counts and column counts (bucket rungs and not)
 PARITY_N = (1, 1000, (1 << 21) + 3)
@@ -92,32 +98,41 @@ def max_abs_diff(a, b) -> int:
 # phase 2: kernel parity
 # ---------------------------------------------------------------------------
 
-def kernel_parity(dev) -> dict[str, int]:
-    import numpy as np
+# per kernel: largest difference from its plain version, cases checked
+ERR = {"sig_hash": 0, "seg_count": 0}
+CASES = {"sig_hash": 0, "seg_count": 0}
+
+
+def parity_case(mat, kw: dict, what: str, seg: bool = True) -> None:
+    """``sig_hash(mat, **kw)`` against its plain version on the same
+    inputs and, with ``seg``, ``seg_count`` on the sorted result against
+    its own; any difference fails the run."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels.seg_count import (seg_boundaries,
                                                seg_boundaries_plain)
     from repro_torch.kernels.sig_hash import sig_hash, sig_hash_plain
 
-    rng = np.random.default_rng(0)
-    err = {"sig_hash": 0, "seg_count": 0}
-    n_cases = {"sig_hash": 0, "seg_count": 0}
-
-    def check(name, got, want, what):
-        torch.cuda.synchronize()
-        e = max_abs_diff(got, want)
-        assert e == 0, f"{name} disagrees with its plain version: {what}"
-        err[name] = max(err[name], e)
-        n_cases[name] += 1
-
-    def seg_check(sig, what):
+    sig = sig_hash(mat, **kw)
+    pairs = [("sig_hash", sig, sig_hash_plain(mat, **kw), "")]
+    if seg:
         srt, _ = ops.sort_signatures(sig)
-        b, c = seg_boundaries(srt)
-        pb, pc = seg_boundaries_plain(srt)
-        check("seg_count", b, pb, what + " bounds")
-        check("seg_count", c, pc, what + " counts")
+        (b, c), (pb, pc) = seg_boundaries(srt), seg_boundaries_plain(srt)
+        pairs += [("seg_count", b, pb, " bounds"),
+                  ("seg_count", c, pc, " counts")]
+    torch.cuda.synchronize()
+    for name, got, want, part in pairs:
+        e = max_abs_diff(got, want)
+        assert e == 0, f"{name} disagrees with its plain version: {what}{part}"
+        ERR[name] = max(ERR[name], e)
+        CASES[name] += 1
 
+
+def kernel_parity(dev) -> None:
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(SEED)
     c = 3
     for n in PARITY_N:
         for k in PARITY_K:
@@ -131,21 +146,18 @@ def kernel_parity(dev) -> dict[str, int]:
                 rng.integers(0, 2, (c, k)).astype(np.int32)).to(dev)
             v_n = torch.from_numpy(rng.random(n) < 0.9).to(dev)
             v_cn = torch.from_numpy(rng.random((c, n)) < 0.9).to(dev)
-            cases = [("(N,K)", (mat,), {}),
-                     ("(N,K) valid (N,)", (mat,), {"valid": v_n}),
-                     ("(C,N,K)", (stack,), {}),
-                     ("(C,N,K) valid (C,N)", (stack,), {"valid": v_cn}),
-                     ("parent+masks valid (N,)", (mat, masks), {"valid": v_n}),
-                     ("parent+masks valid (C,N)", (mat, masks),
-                      {"valid": v_cn})]
+            cases = [("(N,K)", mat, {}),
+                     ("(N,K) valid (N,)", mat, {"valid": v_n}),
+                     ("(C,N,K)", stack, {}),
+                     ("(C,N,K) valid (C,N)", stack, {"valid": v_cn}),
+                     ("parent+masks valid (N,)", mat,
+                      {"valid": v_n, "col_masks": masks}),
+                     ("parent+masks valid (C,N)", mat,
+                      {"valid": v_cn, "col_masks": masks})]
             for what, a, kw in cases:
-                tag = f"{what} N={n} K={k}"
-                sig = sig_hash(*a, **kw)
-                check("sig_hash", sig, sig_hash_plain(*a, **kw), tag)
-                seg_check(sig, tag)
-    log(f"parity: sig_hash {n_cases['sig_hash']} cases, seg_count "
-        f"{n_cases['seg_count']} cases, all bit-exact")
-    return err
+                parity_case(a, kw, f"{what} N={n} K={k}")
+    log(f"parity: sig_hash {CASES['sig_hash']} cases, seg_count "
+        f"{CASES['seg_count']} cases, all bit-exact")
 
 
 # ---------------------------------------------------------------------------
@@ -206,10 +218,10 @@ def compaction(store, totals) -> tuple:
     return runs
 
 
-def check_compaction(store, runs) -> tuple:
+def check_compaction(store, runs):
     from repro_torch.core import sweep
 
-    gd_comp, gd, gd_shapes = runs[("gfsp", "device")]
+    gd_comp, gd, _ = runs[("gfsp", "device")]
     ed_comp, ed, _ = runs[("efsp", "device")]
     gh_comp, gh, _ = runs[("gfsp", "host")]
     assert plan_rows(gd) == plan_rows(gh), "gfsp device != host plan"
@@ -239,14 +251,14 @@ def check_compaction(store, runs) -> tuple:
     assert sweep.trace_count() == 0, dict(sweep.TRACE_COUNTS)
     log(f"warm gfsp/device detection: {secs:.2f} s, lowerings/descent "
         f"{lpd}, new bucket shapes 0")
-    return gd_comp, gd_shapes
+    return gd_comp
 
 
-def build_queries(store, fg, n_queries: int, seed: int):
+def build_queries(store, fg, n_queries: int):
     import numpy as np
     from repro_torch.query import StarQuery
 
-    rng = np.random.default_rng(seed)
+    rng = np.random.default_rng(SEED)
     idx = store.index
     queries = []
     tables = sorted(fg.tables.items())
@@ -280,12 +292,16 @@ def build_queries(store, fg, n_queries: int, seed: int):
     return queries
 
 
-def star_queries(store, fg, n_queries: int, seed: int, totals) -> None:
+def star_queries(store, fg, totals):
+    """Phase 4; returns the engine (its uploaded molecule tables) and the
+    query bucket shapes it launched."""
     import torch
+    from repro_torch.core import sweep
     from repro_torch.query import QueryEngine, eval_raw
 
-    queries = build_queries(store, fg, n_queries, seed)
+    queries = build_queries(store, fg, N_QUERIES)
     eng = QueryEngine(fg)
+    sweep.reset_trace_stats()
     reset_launches()
     t0 = time.perf_counter()
     got = eng.query_batch(queries, backend="device")
@@ -300,54 +316,110 @@ def star_queries(store, fg, n_queries: int, seed: int, totals) -> None:
         want = eval_raw(store, q)
         assert b.same_as(want), f"query {q} differs from eval_raw"
         rows += b.n_rows
+    shapes = sorted(sweep.TRACE_COUNTS)
     log(f"queries: {len(queries)} star queries via query_batch(device) in "
-        f"{secs:.2f} s, launches {launched}, {rows} binding rows, all "
-        "identical to eval_raw on the original store")
+        f"{secs:.2f} s, launches {launched}, bucket shapes {shapes}, "
+        f"{rows} binding rows, all identical to eval_raw on the original "
+        "store")
+    return eng, shapes
 
 
 # ---------------------------------------------------------------------------
-# phase 5: timing at the main path's shapes
+# phase 5: parity and timing at the main path's shapes
 # ---------------------------------------------------------------------------
 
-def kernel_times(store, dev, shapes) -> dict:
+def main_path_parity(store, eng, shapes, dev):
+    """Each kernel against its plain version at every bucket shape the
+    main path launched, on the main path's own data: each class's real
+    parent buffer with its drop-one stack (gfsp) or seeded 0/1 masks
+    over its columns (the wider efsp levels), and each uploaded molecule
+    table with masks and values of its own molecules (queries, which
+    launch ``sig_hash`` only).  Returns the inputs of the widest gfsp
+    sweep, the shape the timings use."""
     import numpy as np
     import torch
-    from repro_torch.core.sweep import DeviceSweepWorkspace
+    from repro_torch.core.sweep import (DeviceSweepWorkspace, bucket_cols,
+                                        bucket_rows)
+
+    rng = np.random.default_rng(SEED)
+    sweeps = [s[1:] for s in shapes if s[0] == "sweep"]
+    buckets = {(n_b, k_b) for n_b, k_b, _ in sweeps}
+    parents = {}
+    for cid in (int(c) for c in store.classes()):
+        stats = store.class_stats(cid)
+        props = tuple(int(p) for p in stats.properties)
+        ws = DeviceSweepWorkspace(store, cid, props, len(props),
+                                  stats.n_instances, device=dev)
+        key = (bucket_rows(ws.matrix.shape[0]), bucket_cols(len(props)))
+        if props and key in buckets and key not in parents:
+            ws._ensure_uploaded()
+            parents[key] = ws
+    assert set(parents) == buckets, (sorted(buckets), sorted(parents))
+
+    timed = None
+    for n_b, k_b, c_b in sweeps:
+        ws = parents[(n_b, k_b)]
+        k = ws.matrix.shape[1]
+        stack = np.zeros((c_b, k_b), np.int32)
+        if c_b == k_b:                   # the gfsp drop-one sweep
+            stack[:, :k] = ws._drop_one_stack(c_b)
+        else:                            # an efsp lattice level
+            stack[:, :k] = rng.integers(0, 2, (c_b, k))
+        kw = {"valid": ws._valid,
+              "col_masks": torch.from_numpy(stack).to(dev)}
+        parity_case(ws._dev, kw, f"sweep ({n_b}, {k_b}) x {c_b}")
+        if c_b == k_b and (timed is None or n_b * k_b > timed[0].numel()):
+            timed = (ws._dev, kw)
+    assert timed is not None, "no gfsp sweep on the main path"
+
+    for _, m_b, k_b, q_b in (s for s in shapes if s[0] == "query"):
+        buf = next(b for b in eng._bufs.values()
+                   if (b.m_bucket, b.k_bucket) == (m_b, k_b))
+        masks = np.zeros((q_b, k_b), np.int32)
+        masks[:, :buf.k] = rng.integers(0, 2, (q_b, buf.k))
+        vals = np.zeros((q_b, k_b), np.int32)
+        vals[:, :buf.k] = buf.dev[torch.from_numpy(
+            rng.integers(0, buf.m, q_b)), :buf.k].cpu().numpy()
+        masks = torch.from_numpy(masks).to(dev)
+        vals = torch.from_numpy(vals).to(dev)
+        parity_case(buf.dev, {"valid": buf.valid, "col_masks": masks},
+                    f"query table ({m_b}, {k_b}) x {q_b}", seg=False)
+        parity_case((vals * masks)[:, None, :], {},
+                    f"query tuples ({q_b}, 1, {k_b})", seg=False)
+    log(f"main-path parity: sweep shapes {sweeps}, query shapes "
+        f"{[s[1:] for s in shapes if s[0] == 'query']}; totals sig_hash "
+        f"{CASES['sig_hash']} cases, seg_count {CASES['seg_count']} cases, "
+        "all bit-exact")
+    return timed
+
+
+def kernel_times(parent, kw) -> dict:
+    import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels.seg_count import (seg_boundaries,
                                                seg_boundaries_plain)
     from repro_torch.kernels.sig_hash import sig_hash, sig_hash_plain
 
-    # the widest sweep of the gfsp run: its class's real parent buffer
-    _, n_b, k_b, c_b = max(s for s in shapes if s[0] == "sweep")
-    cid = max((int(c) for c in store.classes()),
-              key=lambda c: store.entities_of_class(c).shape[0])
-    stats = store.class_stats(cid)
-    ws = DeviceSweepWorkspace(store, cid,
-                              tuple(int(p) for p in stats.properties),
-                              int(stats.properties.shape[0]),
-                              stats.n_instances, device=dev)
-    ws._ensure_uploaded()
-    assert (ws.n_bucket, ws.k_bucket) == (n_b, k_b), (n_b, k_b)
-    stack = np.zeros((c_b, k_b), np.int32)
-    stack[:, :ws.matrix.shape[1]] = ws._drop_one_stack(c_b)
-    parent, valid = ws._dev, ws._valid
-    masks = torch.from_numpy(stack).to(dev)
-    sig = sig_hash(parent, masks, valid)
-    srt, _ = ops.sort_signatures(sig)
+    n_b, k_b = parent.shape
+    c_b = kw["col_masks"].shape[0]
+    srt, _ = ops.sort_signatures(sig_hash(parent, **kw))
     s32 = srt.view(torch.int32)
 
     out = {}
     sig_bytes = n_b * k_b * 4 + c_b * k_b * 4 + n_b + c_b * n_b * 8
-    sig_ops = c_b * n_b * 2 * (7 * k_b + 9)
+    # per row and column, both lanes: 3 IMAD + 3 ALU (mul, rotl, mul;
+    # xor, rotl, mul-add) per lane, plus the mask multiply (IMAD) and
+    # the hi lane's seed xor (ALU); per lane fmix32(h ^ K): 2 IMAD, 7 ALU
+    sig_imad = c_b * n_b * (7 * k_b + 4)
+    sig_alu = c_b * n_b * (7 * k_b + 14)
     out["sig_hash"] = dict(
         shape=f"parent ({n_b}, {k_b}) int32, masks ({c_b}, {k_b}), "
               f"valid ({n_b},) -> ({c_b}, {n_b}, 2) uint32",
-        ms=time_ms(lambda: sig_hash(parent, masks, valid)),
-        plain_ms=time_ms(lambda: sig_hash_plain(parent, masks, valid), 5, 1),
+        ms=time_ms(lambda: sig_hash(parent, **kw)),
+        plain_ms=time_ms(lambda: sig_hash_plain(parent, **kw), 5, 1),
         library_ms=None,
         bound=(sig_bytes / HBM_BYTES_PER_S * 1e3,
-               sig_ops / INT32_OPS_PER_S * 1e3))
+               max(sig_imad, sig_alu) / INT32_PIPE_OPS_PER_S * 1e3))
     seg_bytes = c_b * n_b * 8 + c_b * n_b * 4 + c_b * 4
     seg_ops = c_b * n_b * 4
     out["seg_count"] = dict(
@@ -358,7 +430,7 @@ def kernel_times(store, dev, shapes) -> dict:
         library_ms=time_ms(lambda: torch.any(
             s32[..., 1:, :] != s32[..., :-1, :], dim=-1)),
         bound=(seg_bytes / HBM_BYTES_PER_S * 1e3,
-               seg_ops / INT32_OPS_PER_S * 1e3))
+               seg_ops / INT32_PIPE_OPS_PER_S * 1e3))
     for name, rec in out.items():
         by_bytes, by_ops = rec.pop("bound")
         rec["bound_ms"] = max(by_bytes, by_ops)
@@ -374,8 +446,6 @@ def kernel_times(store, dev, shapes) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n-triples", type=int, default=10_000_000)
-    ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--queries", type=int, default=64)
     args = ap.parse_args()
     t_start = time.perf_counter()
 
@@ -411,7 +481,7 @@ def main() -> int:
 
     # phase 2
     t0 = time.perf_counter()
-    err = kernel_parity(dev)
+    kernel_parity(dev)
     log(f"parity phase: {time.perf_counter() - t0:.1f} s")
 
     # phase 3
@@ -419,24 +489,25 @@ def main() -> int:
     t0 = time.perf_counter()
     store = generate_workload(WorkloadSpec(shape="sensor",
                                            n_triples=args.n_triples,
-                                           seed=args.seed))
+                                           seed=SEED))
     log(f"workload: sensor, n_triples target {args.n_triples}, "
         f"{store.n_triples} triples, {len(store.dict)} terms, generated in "
         f"{time.perf_counter() - t0:.1f} s")
     totals = {"sig_hash": 0, "seg_count": 0}
     runs = compaction(store, totals)
-    gd_comp, shapes = check_compaction(store, runs)
+    gd_comp = check_compaction(store, runs)
 
     # phase 4
-    star_queries(store, gd_comp.fgraph, args.queries, args.seed, totals)
+    eng, q_shapes = star_queries(store, gd_comp.fgraph, totals)
 
     # phase 5
-    times = kernel_times(store, dev, shapes)
+    shapes = sorted({s for r in runs.values() for s in r[2]} | set(q_shapes))
+    times = kernel_times(*main_path_parity(store, eng, shapes, dev))
     src = "src/repro_torch/kernels/csrc/"
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": src + f"{name}.cu",
          "replaces": replaces, "launches": totals[name],
-         "max_abs_err": err[name], "ms": times[name]["ms"],
+         "max_abs_err": ERR[name], "ms": times[name]["ms"],
          "plain_ms": times[name]["plain_ms"],
          "bound_ms": times[name]["bound_ms"],
          "bound_by": times[name]["bound_by"],

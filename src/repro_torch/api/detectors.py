@@ -193,10 +193,6 @@ DETECTORS.register("efsp", ExhaustiveDetector)
 DETECTORS.register("gspan", GSpanBaseline)
 
 
-def register_detector(name: str, cls) -> None:
-    DETECTORS.register(name, cls)
-
-
 def get_detector(spec, **opts) -> Detector:
     """Resolve a detector: registered name (instantiated with ``opts``) or
     an already-constructed detector instance."""

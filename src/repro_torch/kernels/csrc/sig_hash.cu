@@ -15,10 +15,11 @@
 // bit-identical to hashing the masked stack.
 //
 // Bound on an H100: per row it reads K int32 and writes 8 bytes, and runs
-// about 2 * (7K + 9) 32-bit integer operations.  At the sweep's
-// (N=2^21, K=8, C=8) that is ~2.2 G integer operations against ~0.2 GB of
-// traffic, so the integer pipes, not HBM, set the floor; the design keeps
-// all arithmetic in registers, touches the parent once per candidate (it
+// 7K + 4 IMADs (FMA pipe) and 7K + 14 shifts and logic ops (INT32 pipe),
+// each pipe 64 lanes/clk/SM, running side by side.  At the sweep's
+// (N=2^21, K=8, C=8) the INT32 pipe's 1.17 G operations (0.070 ms) and
+// the ~0.2 GB of traffic (0.061 ms) nearly meet; the design keeps all
+// arithmetic in registers, touches the parent once per candidate (it
 // stays in L2 across the candidate axis only when it fits), and issues
 // no shared-memory traffic at all.
 #include <cstdint>

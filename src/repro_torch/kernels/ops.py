@@ -1,17 +1,18 @@
-"""Dispatch over the signature and segment kernels.
+"""The signature and segment operations of the device path.
 
-Every function takes torch tensors and runs where they lie: on a CUDA
-tensor the hand kernels launch (``sig_hash.py``, ``seg_count.py``), on a
-CPU tensor their plain versions run.  There is no flag and no fallback:
-a CUDA launch that fails raises.
+``row_signature`` and ``seg_boundaries`` are the kernel wrappers
+themselves (``sig_hash.py``, ``seg_count.py``) under the reference's
+names: each runs where its tensor lies, the hand kernel on a CUDA
+tensor, its plain version on a CPU tensor.  There is no flag and no
+fallback: a CUDA launch that fails raises.
 """
 from __future__ import annotations
 
 import torch
 
 from .ref import SIG_SENTINEL  # noqa: F401  (re-exported)
-from .seg_count import seg_boundaries as _seg_boundaries
-from .sig_hash import sig_hash as _sig_hash
+from .seg_count import seg_boundaries  # noqa: F401  (re-exported)
+from .sig_hash import sig_hash as row_signature  # noqa: F401  (re-exported)
 
 _SIGN = -(1 << 63)
 
@@ -26,36 +27,6 @@ def resolve_device(device) -> torch.device:
             f"device {str(dev)!r} requested but CUDA is not available; pass "
             "device='cpu' to run the device path's plain torch version")
     return dev
-
-
-def row_signature(mat: torch.Tensor, valid: torch.Tensor | None = None,
-                  col_masks: torch.Tensor | None = None) -> torch.Tensor:
-    """(N, K) int32 -> (N, 2) uint32 signature lanes (hi, lo).
-
-    A ``(C, N, K)`` stack maps to ``(C, N, 2)`` in one launch.  With
-    ``col_masks`` (C, K), ``mat`` is an (N, K) parent and candidate c
-    hashes ``mat * col_masks[c]`` -- the fused form of the masked sweep
-    stack, which is never materialized.
-
-    ``valid``: optional bool mask -- ``(N,)`` (shared across candidates)
-    or ``(C, N)``; rows with ``valid == False`` (bucket padding) receive
-    ``SIG_SENTINEL`` in both lanes, so group-by consumers discount them
-    with one segment subtraction.
-    """
-    if mat.ndim not in (2, 3):
-        raise ValueError(f"expected (N, K) or (C, N, K) matrix, "
-                         f"got {tuple(mat.shape)}")
-    return _sig_hash(mat, col_masks=col_masks, valid=valid)
-
-
-def seg_boundaries(sig_sorted: torch.Tensor
-                   ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Sorted (N, 2) sigs -> ((N,) boundaries, () segment count).
-
-    Batched ``(C, N, 2)`` (each candidate sorted along its own row axis)
-    -> ``((C, N) boundaries, (C,) counts)``.
-    """
-    return _seg_boundaries(sig_sorted)
 
 
 def sort_signatures(sig: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

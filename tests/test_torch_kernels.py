@@ -210,8 +210,8 @@ def test_cuda_sig_hash_matches_plain(cuda, n, k):
     v_cn = torch.from_numpy(rng.random((3, n)) < 0.9).to(cuda)
     for args, kw in [((parent,), {}), ((parent,), {"valid": v_n}),
                      ((stack,), {"valid": v_cn}),
-                     ((parent, masks), {"valid": v_n}),
-                     ((parent, masks), {"valid": v_cn})]:
+                     ((parent,), {"valid": v_n, "col_masks": masks}),
+                     ((parent,), {"valid": v_cn, "col_masks": masks})]:
         got = sig_hash(*args, **kw)
         want = sig_hash_plain(*args, **kw)
         assert torch.equal(got.view(torch.int32), want.view(torch.int32))
