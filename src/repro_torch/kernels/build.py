@@ -22,7 +22,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("sig_hash.cu", "seg_count.cu")
+SOURCES = ("sig_hash.cu", "seg_count.cu", "flash_attention.cu",
+           "linear_scan.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -95,6 +96,13 @@ def library() -> ctypes.CDLL:
         lib.repro_sig_hash.restype = i32
         lib.repro_seg_count.argtypes = [p, i64, i64, p, p, p]
         lib.repro_seg_count.restype = i32
+        lib.repro_flash_attention.argtypes = [
+            p, p, p, p, i64, i32, i32, i64, i64, i32, ctypes.c_float, i32,
+            i32, i32, p]
+        lib.repro_flash_attention.restype = i32
+        lib.repro_linear_scan.argtypes = [p, p, p, p, p, i64, i64, i64, i32,
+                                          p]
+        lib.repro_linear_scan.restype = i32
         _LIB = lib
     return _LIB
 

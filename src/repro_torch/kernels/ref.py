@@ -1,9 +1,10 @@
-"""Plain torch versions of the signature and segment kernels.
+"""Plain torch versions of the kernels' arithmetic.
 
 Each function here is the ground truth its hand kernel is held against
-(``kernels/sig_hash.py``, ``kernels/seg_count.py``): the CPU tests run
-them against ``repro.kernels.ref`` bit for bit, and ``chip_smoke.py``
-runs them on the card beside the kernels.
+(``kernels/sig_hash.py``, ``seg_count.py``, ``flash_attention.py``,
+``linear_scan.py``): the CPU tests run them against
+``repro.kernels.ref``, and ``chip_smoke.py`` runs them on the card
+beside the kernels.
 
 torch has no ``<<``, ``>>`` or ``+`` on ``uint32``, so murmur3 runs in
 int64 with ``& 0xFFFFFFFF`` after every multiply, shift and add: the
@@ -85,3 +86,65 @@ def seg_boundaries_ref(sig_sorted: torch.Tensor) -> torch.Tensor:
     first = torch.ones(s.shape[:-2] + (1,), dtype=torch.int32,
                        device=s.device)
     return torch.cat([first, diff.to(torch.int32)], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# GQA attention and the diagonal linear recurrence
+# ---------------------------------------------------------------------------
+
+def attention_mask(t: int, s: int, causal: bool, window: int | None,
+                   device=None) -> torch.Tensor:
+    """(T, S) bool, True where query row r may attend key j.  Queries
+    occupy the last T slots of the S-long history: query r sits at
+    position ``r + S - T``."""
+    qpos = torch.arange(t, device=device)[:, None] + (s - t)
+    kpos = torch.arange(s, device=device)[None, :]
+    mask = torch.ones((t, s), dtype=torch.bool, device=device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    return mask
+
+
+def mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            causal: bool = True, sm_scale: float | None = None,
+            window: int | None = None) -> torch.Tensor:
+    """Reference grouped-query attention (``repro.kernels.ref.mha_ref``).
+
+    q: (B, Hq, T, D); k, v: (B, Hkv, S, D) with Hq % Hkv == 0.  Computed
+    in float32, returned in q's dtype.  A row with no key to attend is
+    NaN, as in the reference (softmax over nothing).
+    """
+    group = q.shape[1] // k.shape[1]
+    t, s, d = q.shape[2], k.shape[2], q.shape[3]
+    if sm_scale is None:
+        sm_scale = 1.0 / (d ** 0.5)
+    kx = k.repeat_interleave(group, dim=1).float()
+    vx = v.repeat_interleave(group, dim=1).float()
+    logits = torch.einsum("bhtd,bhsd->bhts", q.float(), kx) * sm_scale
+    mask = attention_mask(t, s, causal, window, q.device)
+    logits = logits.masked_fill(~mask, float("-inf"))
+    probs = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhts,bhsd->bhtd", probs, vx).to(q.dtype)
+
+
+def linear_scan_ref(x: torch.Tensor, a: torch.Tensor,
+                    h0: torch.Tensor | None = None
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``h_t = a_t * h_{t-1} + x_t`` over axis 1, in float32.
+
+    x, a: (B, T, D); h0: (B, D) or None (zeros).  Returns the (B, T, D)
+    states in x's dtype and the (B, D) final state in float32.  Each
+    step is one rounded multiply then one rounded add -- the order the
+    CUDA kernel keeps, so the two agree bit for bit.
+    """
+    b, t, d = x.shape
+    h = (torch.zeros((b, d), dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float())
+    xf, af = x.float(), a.float()
+    hs = torch.empty((b, t, d), dtype=torch.float32, device=x.device)
+    for i in range(t):
+        h = af[:, i] * h + xf[:, i]
+        hs[:, i] = h
+    return hs.to(x.dtype), h

@@ -111,6 +111,31 @@ def test_cpu_device_is_explicit():
     assert comp.run(_small_store()).plan.entries
 
 
+def test_lm_serving_defaults_to_cuda_and_raises_without_it(no_cuda):
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.launch import serve
+    from repro_torch.models import LM
+    from repro_torch.serving import Engine
+    cfg = reduced(get_arch("recurrentgemma-2b"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        LM(cfg)
+    model = LM(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Engine(model)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.main(["--reduced", "--requests", "2", "--prompt-len", "16"])
+
+
+def test_lm_serving_runs_on_cpu_when_asked(capsys):
+    from repro_torch.launch import serve
+    out = serve.main(["--reduced", "--device", "cpu", "--requests", "3",
+                      "--prompt-len", "64", "--max-new", "4"])
+    assert sorted(out["outputs"]) == [0, 1, 2]
+    assert all(len(v) == 4 for v in out["outputs"].values())
+    assert out["plan_savings_pct"] > 0
+    assert "identical outputs" in capsys.readouterr().out
+
+
 def test_later_slices_raise_not_implemented():
     from repro_torch.api import Compactor
     with pytest.raises(NotImplementedError, match="gSpan"):
