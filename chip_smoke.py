@@ -7,7 +7,9 @@
 Phases, each an assertion (any failure exits non-zero):
 
 1. the card (``nvidia-smi`` name and power limit) and the kernel build
-   from ``src/repro_torch/kernels/csrc`` (``kernels/build.py``);
+   from ``src/repro_torch/kernels/csrc`` (``kernels/build.py``, compiled
+   afresh every run), each kernel's ``ptxas`` registers and spills (any
+   spill, or a kernel with no ``ptxas`` line, fails the run);
 2. kernel parity: ``sig_hash`` and ``seg_count`` against their plain
    torch versions on the card, bit for bit, over ragged N, several K,
    ``-1`` rows, the (N, K), (C, N, K) and fused parent + column-mask
@@ -33,14 +35,21 @@ Phases, each an assertion (any failure exits non-zero):
    ``serving.Engine``, 8 requests of 2304 tokens (a shared 2048-token
    system prompt + 256 of their own), 16 new tokens each, under the
    ``flat`` and the ``auto`` policy, timed after an untimed pass of
-   both (which records the kernels' inputs for phase 8); both new
-   kernels must launch, every logit be finite, and the next-token
-   logits of the two policies agree; then the two policies again in
-   float32 on a reduced config, where they must agree to float32
-   rounding (tight enough to see a last prompt token decoded twice);
-8. both new kernels against their plain versions on the inputs phase 7
-   launched them with (one per distinct shape), and their times, plain
-   times, bounds and library yardsticks at the flat-prefill shape.
+   both (which records the kernels' inputs for phase 8); both LM
+   kernels must launch (flash only as its bf16 tensor-core kernel),
+   every logit be finite, and the next-token logits of the two policies
+   agree; then the two policies again in float32 on a reduced config
+   (flash only as its float32 CUDA-core kernel), where they must agree
+   to float32 rounding (tight enough to see a last prompt token decoded
+   twice);
+8. both LM kernels against their plain versions on the inputs phase 7
+   launched them with (one per distinct shape; bf16 flash within each
+   query row's limit, which a control -- the plain version with one
+   in-band KV tile left out -- must break), and their times, plain
+   times, bounds and library yardsticks at every shape phase 7 recorded
+   (the scan's decode step among them); the float32 CUDA-core
+   flash kernel at the flat-prefill shape beside them.  The
+   flat-prefill shape's numbers go into the record.
 
 Phase 7 also traces one flat prefill and four decode steps with
 ``torch.profiler`` and prints the device's busy and idle share and the
@@ -57,6 +66,7 @@ import hashlib
 import json
 import math
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -81,13 +91,20 @@ SEED = 0
 PARITY_N = (1, 1000, (1 << 21) + 3)
 PARITY_K = (2, 3, 8, 32)
 
-# phase 6/8 tolerances, absolute, per output dtype.  flash_attention: both
-# sides compute in float32 from the same inputs and differ in summation
-# order only -- float32 1e-5; in bf16 both round those float32 results to
-# bf16, where one step at magnitude m is 2**(floor(log2 m) - 7), so they
-# part by at most one step -- the limit is FLASH_BF16_STEPS steps at the
-# case's largest |output| (``bf16_steps``), which follows the output's
-# scale (about 0.05 for unit-normal inputs over 1000 keys).
+# phase 6/8 tolerances, absolute, per output dtype.  flash_attention in
+# float32 (the CUDA-core kernel): both sides compute in float32 from the
+# same inputs and differ in summation order only -- 1e-5.  In bf16 (the
+# tensor-core kernel) the kernel also rounds each softmax weight p_k to
+# bf16 before PV (l sums them unrounded): a relative change of at most
+# 2**-9 per weight, which moves output j of a row by at most 2**-9 *
+# sum_k p_k |v_kj| -- not 2**-9 of the output, since a row that averages
+# 2000 unit-normal values has outputs near 0.04 and sums near 0.8.  Both
+# sides then round to bf16, half a step each, one step at magnitude m
+# being 2**(floor(log2 m) - 7).  So each query row has its own limit
+# (``flash_attention.bf16_row_limit``): FLASH_BF16_STEPS steps at the
+# row's largest |output| plus 2**-9 times its largest sum_k p_k |v_kj|.
+# Phase 8 shows that the limit sees a wrong kernel: the plain version
+# with one in-band 64-key tile left out of PV must break it.
 # linear_scan: bit-exact (both take each step as one rounded multiply and
 # one rounded add).
 TOL = {"flash_attention": {"float32": 1e-5},
@@ -139,6 +156,21 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def kernel_name(mangled: str) -> str:
+    """``name`` plus its template arguments (still mangled) from the
+    Itanium symbol of a kernel inside a namespace: the last of the
+    length-prefixed names after ``_ZN``."""
+    i, name = mangled.index("_ZN") + 3, ""
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        n = int(mangled[i:j])
+        name, i = mangled[j:j + n], j + n
+    m = re.match(r"I(\w*?E)E", mangled[i:])
+    return name + (f"I{m.group(1)}" if m else "")
 
 
 def bf16_steps(m: float, n: int) -> float:
@@ -244,6 +276,15 @@ def _kernel_modules():
 def reset_launches() -> None:
     for mod in _kernel_modules().values():
         mod.launches = 0
+    fa = _kernel_modules()["flash_attention"]
+    fa.tensor_core_launches = fa.cuda_core_launches = 0
+
+
+def flash_kernel_launches() -> dict[str, int]:
+    """The two flash kernels' launch counts since the last reset."""
+    fa = _kernel_modules()["flash_attention"]
+    return {"tensor_core": fa.tensor_core_launches,
+            "cuda_core": fa.cuda_core_launches}
 
 
 def read_launches(names=("sig_hash", "seg_count")) -> dict[str, int]:
@@ -469,6 +510,21 @@ def main_path_parity(store, eng, shapes, dev):
     return timed
 
 
+def with_bound(rec: dict) -> dict:
+    """Turns ``rec["bound"]`` (bytes ms, operations ms) into ``bound_ms``
+    and ``bound_by``, and logs the record."""
+    by_bytes, by_ops = rec.pop("bound")
+    rec["bound_ms"] = max(by_bytes, by_ops)
+    rec["bound_by"] = "bytes" if by_bytes >= by_ops else "operations"
+    lib = rec["library_ms"]
+    log(f"timing {rec['name']} at {rec['shape']}: kernel {rec['ms']:.4f} ms, "
+        f"plain {rec['plain_ms']:.4f} ms, library "
+        f"{'none' if lib is None else f'{lib:.4f}'} ms, bound "
+        f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}; bytes {by_bytes:.4f} "
+        f"ms, operations {by_ops:.4f} ms)")
+    return rec
+
+
 def kernel_times(parent, kw) -> dict:
     import torch
     from repro_torch.kernels import ops
@@ -507,53 +563,79 @@ def kernel_times(parent, kw) -> dict:
             s32[..., 1:, :] != s32[..., :-1, :], dim=-1)),
         bound=(seg_bytes / HBM_BYTES_PER_S * 1e3,
                seg_ops / INT32_PIPE_OPS_PER_S * 1e3))
-    for name, rec in out.items():
-        by_bytes, by_ops = rec.pop("bound")
-        rec["bound_ms"] = max(by_bytes, by_ops)
-        rec["bound_by"] = "bytes" if by_bytes >= by_ops else "operations"
-        log(f"timing {name} at {rec['shape']}: kernel {rec['ms']:.4f} ms, "
-            f"plain {rec['plain_ms']:.4f} ms, library "
-            f"{rec['library_ms'] if rec['library_ms'] is None else round(rec['library_ms'], 4)} ms, "
-            f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}; bytes "
-            f"{by_bytes:.4f} ms, operations {by_ops:.4f} ms)")
-    return out
+    return {name: with_bound(dict(name=name, **rec))
+            for name, rec in out.items()}
 
 
 # ---------------------------------------------------------------------------
 # phase 6: parity of the LM kernels on random inputs
 # ---------------------------------------------------------------------------
 
-def float_case(name: str, got, want, what: str) -> float:
+def float_case(name: str, got, want, what: str, limit=None) -> float:
     """Max |got - want| of a float kernel against its plain version,
-    held to the tolerance of the output dtype (for flash in bf16, to
-    ``FLASH_BF16_STEPS`` steps at max |want|); any excess fails."""
+    held to ``limit`` (flash in bf16: a (..., T, 1) tensor of row limits)
+    or else the tolerance of the output dtype; any excess fails."""
     import torch
     torch.cuda.synchronize()
     dt = str(want.dtype).removeprefix("torch.")
     assert got.dtype == want.dtype and got.shape == want.shape, what
-    e, scale = ((float((got.float() - want.float()).abs().max()),
-                 float(want.float().abs().max())) if got.numel()
-                else (0.0, 0.0))
-    if name == "flash_attention" and dt == "bfloat16":
-        tol = bf16_steps(scale, FLASH_BF16_STEPS)
-    else:
-        tol = TOL[name][dt]
-    if name == "flash_attention":
-        log(f"  flash {what}: max |delta| {e:.4g}, max |want| {scale:.4g}, "
-            f"tolerance {tol:.4g}")
-    assert e <= tol, f"{name} disagrees with its plain version: {what} " \
-        f"max |delta| {e} > {tol}"
+    tol = TOL[name][dt] if limit is None else limit
+    delta = (got.float() - want.float()).abs()
+    e = float(delta.max()) if got.numel() else 0.0
+    ok = bool((delta <= tol).all())
+    if limit is not None and got.numel():
+        worst = float((delta.amax(-1, keepdim=True) /
+                       limit.clamp_min(1e-30)).max())
+        tol = float(limit.max())
+        log(f"  flash {what}: max |delta| {e:.4g}, max |want| "
+            f"{float(want.float().abs().max()):.4g}, row limits "
+            f"{float(limit[limit > 0].min()):.4g}..{tol:.4g}, worst row "
+            f"{worst:.3f} of its limit")
+    elif name == "flash_attention":
+        log(f"  flash {what}: max |delta| {e:.4g}, tolerance {tol:.4g}")
+    assert ok, f"{name} disagrees with its plain version: {what} " \
+        f"max |delta| {e}"
     ERR[name] = max(ERR[name], e)
-    LIMIT[name] = max(LIMIT[name], tol)
+    LIMIT[name] = max(LIMIT[name], float(tol))
     CASES[name] += 1
     return e
 
 
-def flash_case(q, k, v, kw: dict, what: str) -> float:
-    from repro_torch.kernels.flash_attention import (flash_attention,
+def flash_case(q, k, v, kw: dict, what: str, control: bool = False
+               ) -> float:
+    """``flash_attention`` against its plain version (bf16: within each
+    row's limit).  With ``control``, a wrong kernel must break the same
+    limits: the plain version with the 64-key KV tile at the middle of S
+    (attended by the rows after it) left out of PV, its V zeroed."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (bf16_row_limit,
+                                                     flash_attention,
                                                      flash_attention_plain)
-    return float_case("flash_attention", flash_attention(q, k, v, **kw),
-                      flash_attention_plain(q, k, v, **kw), what)
+    want = flash_attention_plain(q, k, v, **kw)
+    limit = (bf16_row_limit(q, k, v, want, steps=FLASH_BF16_STEPS, **kw)
+             if q.dtype == torch.bfloat16 else None)
+    e = float_case("flash_attention", flash_attention(q, k, v, **kw), want,
+                   what, limit)
+    if control:
+        s = k.shape[2]
+        lo = s // 2 // 64 * 64
+        lost = v.clone()
+        lost[:, :, lo:lo + 64] = 0
+        delta = (flash_attention_plain(q, k, lost, **kw).float() -
+                 want.float()).abs().amax(-1, keepdim=True)
+        over = delta > limit
+        seeing = ref.attention_mask(q.shape[2], s, kw.get("causal", True),
+                                    kw.get("window"), q.device)[
+            :, lo:lo + 64].any(-1)
+        log(f"  control: keys [{lo}, {lo + 64}) left out of PV: max |delta| "
+            f"{float(delta.max()):.4g}, {int(over.sum())} of "
+            f"{int(seeing.sum()) * q.shape[0] * q.shape[1]} rows that "
+            f"attend them over their limit, the closest "
+            f"{float((delta / limit.clamp_min(1e-30))[..., seeing, :].min()):.3f}"
+            " times its limit")
+        assert bool(over.any()), "the bf16 limit cannot see a lost KV tile"
+    return e
 
 
 def scan_case(x, a, h0, what: str) -> float:
@@ -605,8 +687,7 @@ def lm_kernel_parity(dev) -> None:
             key = ("linear_scan", str(dtype))
             worst[key] = max(worst.get(key, 0.0), e)
     for (name, dt), e in sorted(worst.items()):
-        tol = TOL[name].get(dt.removeprefix("torch."),
-                            f"{FLASH_BF16_STEPS} bf16 steps at max |want|")
+        tol = TOL[name].get(dt.removeprefix("torch."), "the row limits")
         log(f"parity: {name} {dt}: max |delta| {e:.3g} (tolerance {tol})")
     log(f"parity: flash_attention {CASES['flash_attention']} cases, "
         f"linear_scan {CASES['linear_scan']} cases, all within tolerance")
@@ -764,12 +845,16 @@ def lm_serve(dev):
     log(f"lm prompt phase auto / flat: "
         f"{results['auto'][2] / results['flat'][2]:.2f}")
     launched = read_launches(("flash_attention", "linear_scan"))
+    kinds = flash_kernel_launches()
     for name, n in launched.items():
         assert n > 0, f"{name} was not launched by the LM serve path"
+    assert kinds == {"tensor_core": launched["flash_attention"],
+                     "cuda_core": 0}, f"bf16 prefills launched {kinds}"
     n_local = cfg.pattern.count("local")
     n_rglru = cfg.pattern.count("rglru")
-    log(f"lm launches {launched} (expected: flash {n_local} per prefill, "
-        f"scan {n_rglru} per prefill and per decode step)")
+    log(f"lm launches {launched}, flash kernels {kinds} (expected: flash "
+        f"{n_local} per prefill, all tensor-core; scan {n_rglru} per "
+        "prefill and per decode step)")
 
     (f_out, f_lg, _), (a_out, a_lg, _) = results["flat"], results["auto"]
     delta = float((f_lg[0] - a_lg[0]).abs().max())
@@ -809,12 +894,14 @@ def lm_serve(dev):
     return launched, rec
 
 
-def lm_policy_parity_f32(dev) -> None:
+def lm_policy_parity_f32(dev) -> dict[str, int]:
     """Phase 7b: ``flat`` against ``auto`` in float32 on the card, through
     both kernels (the reduced config at head_dim 64, 4 prompts of 48
     tokens sharing 40, past the window of 32 with a wrap): equal tokens
-    and logits within ``LM_F32_TOL``.  A second decode of the last
-    prompt token must break that limit tenfold, so the check can see it."""
+    and logits within ``LM_F32_TOL``, flash only as its CUDA-core
+    kernel.  A second decode of the last prompt token must break that
+    limit tenfold, so the check can see it.  Returns the two flash
+    kernels' launches of the two runs."""
     import numpy as np
     import torch
     from repro_torch.configs import get_arch, reduced
@@ -831,12 +918,16 @@ def lm_policy_parity_f32(dev) -> None:
         1, cfg.vocab_size, length - shared, dtype=np.int32)])
         for _ in range(n)])
     res = {}
+    reset_launches()
     for policy in ("flat", "auto"):
         eng = Engine(model, cache_len=length + new, chunk=8, policy=policy,
                      device=dev)
         for i, p in enumerate(toks):
             eng.submit(Request(rid=i, tokens=p, max_new=new))
         res[policy] = (eng.run(keep_logits=True), eng.logits)
+    kinds = flash_kernel_launches()
+    assert kinds["tensor_core"] == 0 and kinds["cuda_core"] > 0, \
+        f"float32 prefills launched {kinds}"
     (f_out, f_lg), (a_out, a_lg) = res["flat"], res["auto"]
     plan = eng.last_plan
     assert plan.shares and plan.suffix_start == shared, plan.suffix_start
@@ -852,27 +943,77 @@ def lm_policy_parity_f32(dev) -> None:
         f"tokens, {new} new): tokens equal {a_out == f_out}, logits max "
         f"|delta| {delta:.4g} (logit scale {float(f_lg.abs().max()):.4g}, "
         f"tolerance {LM_F32_TOL}); a second decode of the last prompt token "
-        f"would move them {fault:.4g}")
+        f"would move them {fault:.4g}; flash kernels {kinds}")
     assert a_out == f_out, "float32 flat and auto tokens differ"
     assert delta <= LM_F32_TOL, f"float32 flat/auto logits differ by {delta}"
     assert fault > 10 * LM_F32_TOL, "the check cannot see a double decode"
+    return kinds
 
 
 # ---------------------------------------------------------------------------
 # phase 8: the LM kernels on the path's own inputs, and their times
 # ---------------------------------------------------------------------------
 
-def lm_path_parity_and_times(rec) -> dict:
+def flash_times(q, k, v, kw: dict) -> dict:
+    """The flash kernel that ``q``'s type routes to, its plain version and
+    SDPA (boolean mask, KV head expanded) on the same inputs; the bound
+    counts the attended pairs at the type's peak rate (bf16 tensor cores
+    or float32 CUDA cores)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import (flash_attention,
-                                                     flash_attention_plain)
+                                                     flash_attention_plain,
+                                                     kernel_for)
+
+    b, hq, t, d = q.shape
+    hkv, s = k.shape[1], k.shape[2]
+    mask = ref.attention_mask(t, s, kw.get("causal", True), kw.get("window"),
+                              q.device)
+    pairs = int(mask.sum())                       # attended (q, k) per head
+    flops = 4 * d * hq * b * pairs
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    peak = BF16_TENSOR_FLOPS if q.dtype == torch.bfloat16 else F32_FLOPS
+    kx = k.repeat_interleave(hq // hkv, dim=1)
+    vx = v.repeat_interleave(hq // hkv, dim=1)
+    rec = dict(
+        name=f"flash_attention ({kernel_for(q.dtype, d)})",
+        shape=f"q {tuple(q.shape)} kv {tuple(k.shape)} {q.dtype} {kw}, "
+              f"{pairs} attended pairs per head",
+        ms=time_ms(lambda: flash_attention(q, k, v, **kw), 10, 2),
+        plain_ms=time_ms(lambda: flash_attention_plain(q, k, v, **kw), 3, 1),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            q, kx, vx, attn_mask=mask), 10, 2),
+        bound=(nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3))
+    del kx, vx, mask
+    return with_bound(rec)
+
+
+def scan_times(x, a, h0) -> dict:
     from repro_torch.kernels.linear_scan import linear_scan, linear_scan_plain
+
+    sb, _, sd = x.shape
+    scan_bytes = 3 * x.numel() * x.element_size() + 4 * sb * sd * (
+        2 if h0 is not None else 1)
+    return with_bound(dict(
+        name="linear_scan",
+        shape=f"x, a {tuple(x.shape)} {x.dtype}, h0 {h0 is not None}",
+        ms=time_ms(lambda: linear_scan(x, a, h0), 50, 5),
+        plain_ms=time_ms(lambda: linear_scan_plain(x, a, h0), 3, 1),
+        library_ms=None,
+        bound=(scan_bytes / HBM_BYTES_PER_S * 1e3,
+               2 * x.numel() / F32_FLOPS * 1e3)))
+
+
+def lm_path_parity_and_times(rec) -> dict:
+    """Phase 8.  Returns the record fields of both LM kernels at the flat
+    prefill's shape (the largest recorded)."""
+    import torch
 
     for q, k, v, kw in rec.flash.values():
         flash_case(q, k, v, kw, f"path q {tuple(q.shape)} kv "
-                                f"{tuple(k.shape)} {q.dtype} {kw}")
+                                f"{tuple(k.shape)} {q.dtype} {kw}",
+                   control=True)
     for x, a, h0 in rec.scan.values():
         scan_case(x, a, h0, f"path x {tuple(x.shape)} {x.dtype} "
                             f"h0={h0 is not None}")
@@ -882,50 +1023,23 @@ def lm_path_parity_and_times(rec) -> dict:
         f"|delta| flash "
         f"{ERR['flash_attention']:.3g}, scan {ERR['linear_scan']:.3g}")
 
-    # timing at the flat-prefill shape: the largest recorded inputs
-    q, k, v, kw = max(rec.flash.values(), key=lambda r: r[0].numel())
-    b, hq, t, d = q.shape
-    hkv, s = k.shape[1], k.shape[2]
-    mask = ref.attention_mask(t, s, kw.get("causal", True), kw.get("window"),
-                              q.device)
-    pairs = int(mask.sum())                       # attended (q, k) per head
-    flops = 4 * d * hq * b * pairs
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-    kx = k.repeat_interleave(hq // hkv, dim=1)
-    vx = v.repeat_interleave(hq // hkv, dim=1)
-    out = {}
-    out["flash_attention"] = dict(
-        shape=f"q {tuple(q.shape)} kv {tuple(k.shape)} {q.dtype} {kw}, "
-              f"{pairs} attended pairs per head",
-        ms=time_ms(lambda: flash_attention(q, k, v, **kw), 10, 2),
-        plain_ms=time_ms(lambda: flash_attention_plain(q, k, v, **kw), 3, 1),
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-            q, kx, vx, attn_mask=mask), 10, 2),
-        bound=(nbytes / HBM_BYTES_PER_S * 1e3,
-               flops / BF16_TENSOR_FLOPS * 1e3))
+    # every recorded shape (the flash prefills; the scan's prefills and
+    # its decode step), largest first: the flat prefill's numbers go into
+    # the record
+    by_size = lambda r: -r[0].numel()                          # noqa: E731
+    flash = [flash_times(*r) for r in sorted(rec.flash.values(), key=by_size)]
+    scan = [scan_times(*r) for r in sorted(rec.scan.values(), key=by_size)]
 
-    x, a, h0 = max(rec.scan.values(), key=lambda r: r[0].numel())
-    sb, st, sd = x.shape
-    scan_bytes = 3 * x.numel() * x.element_size() + 4 * sb * sd * (
-        2 if h0 is not None else 1)
-    out["linear_scan"] = dict(
-        shape=f"x, a {tuple(x.shape)} {x.dtype}, h0 {h0 is not None}",
-        ms=time_ms(lambda: linear_scan(x, a, h0)),
-        plain_ms=time_ms(lambda: linear_scan_plain(x, a, h0), 3, 1),
-        library_ms=None,
-        bound=(scan_bytes / HBM_BYTES_PER_S * 1e3,
-               2 * x.numel() / F32_FLOPS * 1e3))
-    for name, r in out.items():
-        by_bytes, by_ops = r.pop("bound")
-        r["bound_ms"] = max(by_bytes, by_ops)
-        r["bound_by"] = "bytes" if by_bytes >= by_ops else "operations"
-        lib = r["library_ms"]
-        log(f"timing {name} at {r['shape']}: kernel {r['ms']:.4f} ms, plain "
-            f"{r['plain_ms']:.4f} ms, library "
-            f"{'none' if lib is None else f'{lib:.4f}'} ms, bound "
-            f"{r['bound_ms']:.4f} ms ({r['bound_by']}; bytes {by_bytes:.4f} "
-            f"ms, operations {by_ops:.4f} ms)")
-    return out
+    # the float32 CUDA-core kernel at the flat prefill's shape, on the same
+    # inputs in float32, beside the tensor-core kernel and SDPA above
+    q, k, v, kw = max(rec.flash.values(), key=lambda r: r[0].numel())
+    q, k, v = q.float(), k.float(), v.float()
+    flash_case(q, k, v, kw, f"path q {tuple(q.shape)} kv {tuple(k.shape)} "
+                            f"as float32 {kw}")
+    flash_times(q, k, v, kw)
+    del q, k, v
+    torch.cuda.empty_cache()
+    return {"flash_attention": flash[0], "linear_scan": scan[0]}
 
 
 def main() -> int:
@@ -956,20 +1070,29 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python "
         f"{sys.version.split()[0]}")
     from repro_torch.kernels import build
+    # a build dir of its own, emptied first: every run compiles, so the
+    # ptxas lines below are always read
+    build.BUILD_DIR = ROOT / "build" / "chip_smoke_kernels"
+    shutil.rmtree(build.BUILD_DIR, ignore_errors=True)
     t0 = time.perf_counter()
     lib = build.build()
     build.library()
     log(f"kernels built from {build.CSRC.relative_to(ROOT)} "
         f"({', '.join(build.SOURCES)}) -> {lib.relative_to(ROOT)} in "
         f"{time.perf_counter() - t0:.1f} s")
-    kernel = ""
+    kernel, seen = "", set()
     for line in build.BUILD_LOG.splitlines():
-        m = re.search(r"entry function '\w*?\d([a-z][a-z_]*_kernel)(I\w*?E)?E",
-                      line)
+        m = re.search(r"entry function '(\w+)'", line)
         if m:
-            kernel = m.group(1) + (m.group(2) or "")
+            kernel = kernel_name(m.group(1))
         elif "registers" in line or "spill" in line:
             log(f"  ptxas {kernel}: {line.strip()}")
+            assert "spill" not in line or \
+                "0 bytes spill stores, 0 bytes spill loads" in line, \
+                f"{kernel} spills registers"
+            seen.add(kernel.split("I")[0])
+    assert seen == {"sig_hash_kernel", "seg_count_kernel", "flash_fwd_kernel",
+                    "flash_sm90_kernel", "linear_scan_kernel"}, seen
 
     # phase 2
     t0 = time.perf_counter()
@@ -1015,9 +1138,12 @@ def main() -> int:
     times.update(lm_path_parity_and_times(rec))
     log(f"lm path parity and timing phase: {time.perf_counter() - t0:.1f} s")
 
+    # the main path launches flash_attention as its bf16 tensor-core kernel
     src = "src/repro_torch/kernels/csrc/"
+    source = {"flash_attention": "flash_attention_sm90.cu"}
     record = {"kernels": [
-        {"name": name, "route": "cuda", "source": src + f"{name}.cu",
+        {"name": name, "route": "cuda",
+         "source": src + source.get(name, f"{name}.cu"),
          "replaces": replaces, "launches": totals[name],
          "max_abs_err": ERR[name], "ms": times[name]["ms"],
          "plain_ms": times[name]["plain_ms"],

@@ -3,7 +3,10 @@
 The ``csrc/*.cu`` sources compile with ``nvcc`` for ``sm_90a`` into one
 shared library with a plain C interface, loaded with ``ctypes`` (no
 PyTorch headers, so a build takes seconds).  Each source compiles in
-its own ``nvcc`` process, all started together, then one link.
+its own ``nvcc`` process, all started together, then one link.  The
+library links the CUDA runtime alone: ``flash_attention_sm90.cu`` finds
+``cuTensorMapEncodeTiled`` in ``libcuda.so.1`` with ``dlsym`` at run
+time.
 
 The library lands in ``build/repro_torch_kernels/`` at the root of the
 checkout, named by a hash of the sources and flags: a changed source
@@ -23,7 +26,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 SOURCES = ("sig_hash.cu", "seg_count.cu", "flash_attention.cu",
-           "linear_scan.cu")
+           "flash_attention_sm90.cu", "linear_scan.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -96,10 +99,10 @@ def library() -> ctypes.CDLL:
         lib.repro_sig_hash.restype = i32
         lib.repro_seg_count.argtypes = [p, i64, i64, p, p, p]
         lib.repro_seg_count.restype = i32
-        lib.repro_flash_attention.argtypes = [
-            p, p, p, p, i64, i32, i32, i64, i64, i32, ctypes.c_float, i32,
-            i32, i32, p]
-        lib.repro_flash_attention.restype = i32
+        for fn in (lib.repro_flash_attention, lib.repro_flash_attention_sm90):
+            fn.argtypes = [p, p, p, p, i64, i32, i32, i64, i64, i32,
+                           ctypes.c_float, i32, i32, p]
+            fn.restype = i32
         lib.repro_linear_scan.argtypes = [p, p, p, p, p, i64, i64, i64, i32,
                                           p]
         lib.repro_linear_scan.restype = i32

@@ -1,20 +1,23 @@
-// GQA forward attention with an online softmax, written for Hopper (sm_90a).
+// GQA forward attention with an online softmax on the float32 CUDA cores,
+// for float32 inputs (sm_90a).  bfloat16 inputs take the tensor-core kernel
+// in flash_attention_sm90.cu: its products would need TF32 here, and TF32
+// cannot meet float32's 1e-5.
 //
 // Replaces the Pallas TPU kernel repro/kernels/flash_attention.py::
-// flash_attention (_flash_kernel).  That kernel walks a sequential KV grid
-// axis and carries m, l and the accumulator in VMEM scratch between grid
-// steps; here one block owns one (batch, q-head, 64-row query tile) and
-// loops over the KV tiles itself, so nothing is carried between blocks.
+// flash_attention (_flash_kernel) for float32.  That kernel walks a
+// sequential KV grid axis and carries m, l and the accumulator in VMEM
+// scratch between grid steps; here one block owns one (batch, q-head,
+// 64-row query tile) and loops over the KV tiles itself, so nothing is
+// carried between blocks.
 //
 // Layout: grid (cdiv(T, 64), Hq, B), 256 threads as a 16 x 16 grid.  The
-// query tile (64 x D, float32) stays in shared memory for the whole loop;
-// each 32-key K and V tile is staged in shared memory as float32.  A
-// thread owns 4 query rows: for the scores it holds a 4 x 2 micro-tile
-// (keys tc and tc + 16), for the output a 4 x D/16 accumulator in
-// registers (64 floats at D = 256), columns tc + 16 j.  The 16 threads
-// sharing a row reduce its max and sum with xor shuffles inside their
-// half-warp.  m, l and the accumulator are float32 whatever the input
-// type.  The KV head of q-head h is h / (Hq / Hkv), read in place.
+// query tile (64 x D) stays in shared memory for the whole loop; each
+// 32-key K and V tile is staged in shared memory.  A thread owns 4 query
+// rows: for the scores it holds a 4 x 2 micro-tile (keys tc and tc + 16),
+// for the output a 4 x D/16 accumulator in registers (64 floats at
+// D = 256), columns tc + 16 j.  The 16 threads sharing a row reduce its max
+// and sum with xor shuffles inside their half-warp.  The KV head of q-head
+// h is h / (Hq / Hkv), read in place.
 //
 // Masking: query row r sits at position qpos = r + S - T.  A key j is
 // attended when j < S, and j <= qpos if causal, and j > qpos - window if a
@@ -24,14 +27,11 @@
 // so causal=False on a ragged S matches the reference.
 //
 // Bound on an H100: 4 * Hq * D flops per attended (q, k) pair (QK^T and
-// PV) against reading q, k, v and writing o once.  At recurrentgemma-2b's
-// prefill (8, 10, 2304, 256) bf16 with window 2048 that is 2.15e11 flops
-// (0.217 ms at the 989 TFLOP/s bf16 tensor-core peak) against 208 MB
-// (0.062 ms at 3.35 TB/s): the operations bound it.  This first version
-// runs its products on the float32 CUDA cores (67 TFLOP/s peak), so it
-// cannot come near that bound; wgmma tiles fed by TMA are the next step.
+// PV) against reading q, k, v and writing o once; at recurrentgemma-2b's
+// prefill shape (8, 10, 2304, 256), window 2048, the operations bound it:
+// 2.15e11 flops, 3.2 ms at the 67 TFLOP/s float32 rate of the CUDA cores
+// these products run on.
 #include <cstdint>
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -42,29 +42,16 @@ constexpr int kThreads = 256;  // 16 x 16
 constexpr int kPS = kTK + 1;   // padded row stride of the P tile
 constexpr float kNeg = -1e30f;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
 template <int D>
 constexpr int smem_floats() {
   // Q [kTQ][D], K [kTK][D + 4], V [kTK][D], P [kTQ][kPS]
   return kTQ * D + kTK * (D + 4) + kTK * D + kTQ * kPS;
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ out, int hq,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ out, int hq,
                  int hkv, int t, int s, float scale, int causal,
                  int window) {
   constexpr int kKS = D + 4;     // K row stride: float4 reads of rows
@@ -85,14 +72,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tc = tid & 15;
   const int q0 = iq * kTQ;
   const int off = s - t;
-  const T* qb = q + (static_cast<int64_t>(b) * hq + h) * t * D;
-  const T* kb = k + (static_cast<int64_t>(b) * hkv + hk) * s * D;
-  const T* vb = v + (static_cast<int64_t>(b) * hkv + hk) * s * D;
-  T* ob = out + (static_cast<int64_t>(b) * hq + h) * t * D;
+  const float* qb = q + (static_cast<int64_t>(b) * hq + h) * t * D;
+  const float* kb = k + (static_cast<int64_t>(b) * hkv + hk) * s * D;
+  const float* vb = v + (static_cast<int64_t>(b) * hkv + hk) * s * D;
+  float* ob = out + (static_cast<int64_t>(b) * hq + h) * t * D;
 
   for (int i = tid; i < kTQ * D; i += kThreads) {
     const int r = i / D;
-    qs[i] = q0 + r < t ? to_f(qb[static_cast<int64_t>(q0) * D + i]) : 0.f;
+    qs[i] = q0 + r < t ? qb[static_cast<int64_t>(q0) * D + i] : 0.f;
   }
 
   // the band of keys any row of this tile may attend
@@ -117,8 +104,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int c = i - r * D;
       const int64_t src = static_cast<int64_t>(k0 + r) * D + c;
       const bool in = k0 + r < s;
-      ks[r * kKS + c] = in ? to_f(kb[src]) : 0.f;
-      vs[i] = in ? to_f(vb[src]) : 0.f;
+      ks[r * kKS + c] = in ? kb[src] : 0.f;
+      vs[i] = in ? vb[src] : 0.f;
     }
     __syncthreads();
 
@@ -195,61 +182,47 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < kCols; ++c)
       ob[static_cast<int64_t>(r) * D + tc + 16 * c] =
-          from_f<T>(any ? acc[i][c] / l[i] : 0.f);
+          any ? acc[i][c] / l[i] : 0.f;
   }
 }
 
-template <typename T, int D>
+template <int D>
 int launch(const void* q, const void* k, const void* v, void* out,
            int64_t b, int hq, int hkv, int64_t t, int64_t s, float scale,
            int causal, int window, cudaStream_t stream) {
   const int smem = smem_floats<D>() * static_cast<int>(sizeof(float));
-  auto kernel = flash_fwd_kernel<T, D>;
+  auto kernel = flash_fwd_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>((t + kTQ - 1) / kTQ),
                   static_cast<unsigned>(hq), static_cast<unsigned>(b));
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), hq, hkv,
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), hq, hkv,
       static_cast<int>(t), static_cast<int>(s), scale, causal, window);
   return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int dispatch_d(const void* q, const void* k, const void* v, void* out,
-               int64_t b, int hq, int hkv, int64_t t, int64_t s, int d,
-               float scale, int causal, int window, cudaStream_t stream) {
-  switch (d) {
-    case 64:
-      return launch<T, 64>(q, k, v, out, b, hq, hkv, t, s, scale, causal,
-                           window, stream);
-    case 256:
-      return launch<T, 256>(q, k, v, out, b, hq, hkv, t, s, scale, causal,
-                            window, stream);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
 }
 
 }  // namespace
 
 // q: (B, Hq, T, D); k, v: (B, Hkv, S, D); out: (B, Hq, T, D), all
-// contiguous and of one type: dtype 0 = float32, 1 = bfloat16.
-// D in {64, 256}; window <= 0 means none.
+// contiguous float32.  D in {64, 256}; window <= 0 means none.
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, void* out, int64_t b,
                                      int hq, int hkv, int64_t t, int64_t s,
                                      int d, float scale, int causal,
-                                     int window, int dtype, void* stream) {
+                                     int window, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch_d<float>(q, k, v, out, b, hq, hkv, t, s, d, scale,
-                             causal, window, st);
-  if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(q, k, v, out, b, hq, hkv, t, s, d,
-                                     scale, causal, window, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  switch (d) {
+    case 64:
+      return launch<64>(q, k, v, out, b, hq, hkv, t, s, scale, causal, window,
+                        st);
+    case 256:
+      return launch<256>(q, k, v, out, b, hq, hkv, t, s, scale, causal,
+                         window, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -2,14 +2,16 @@
 
 Replaces the Pallas TPU kernel ``repro/kernels/linear_scan.py::
 linear_scan`` (``_scan_kernel``).  The kernel is ``csrc/linear_scan.cu``:
-one thread per (batch, channel), a float32 carry in a register walking
-the T steps, neighbouring threads on neighbouring channels so every
-step's loads and stores coalesce.
+one thread per (batch, channel) with a float32 carry in a register
+walking the T steps, one warp of 32 neighbouring channels per block, and
+a ring of 4 cp.async stages (32 time steps x 32 channels of x and a
+each) filled 3 stages ahead of the chain.
 
 What bounds it on an H100: bytes -- x and a read once, the states
 written once.  At recurrentgemma-2b's prefill (8, 2304, 2560) float32
-that is 566 MB, 0.169 ms at 3.35 TB/s; with only 20,480 threads, each a
-chain of T dependent steps, the kernel is bound by load latency first.
+that is 566 MB, 0.169 ms at 3.35 TB/s.  With only 20,480 chains, the
+ring's bytes in flight, not the thread count, have to cover the memory
+latency.
 
 The states leave in x's type and the final state in float32 (the port's
 stated choice: ``linear_scan_ref`` and the float32 RG-LRU state cache

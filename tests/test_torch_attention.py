@@ -2,21 +2,29 @@
 
 The plain version of the port's ``flash_attention`` against the Pallas
 kernel in interpret mode and against ``repro.kernels.ref.mha_ref``;
-the port's ``decode_attention`` against its JAX twin; the hand CUDA
-kernel against its plain version where a card is present.
+the port's ``decode_attention`` against its JAX twin; the wrapper's
+routing of each type to its kernel; the two hand CUDA kernels against
+their plain version where a card is present.
 
 Tolerances: float32 on the CPU, 1e-5 absolute -- both sides compute in
 float32 and differ only in summation order over at most 64 keys of
-unit-scale values.  On the card, float32 1e-5 absolute (the kernel sums
-in its own order over up to 2304 keys) and bfloat16 two bf16 steps at
-the largest |output| of the case (both sides round float32 results that
-differ in summation order only to bf16, so they part by at most one
-step, ``2 ** (floor(log2 m) - 7)`` at magnitude m).
+unit-scale values.  On the card, float32 (the CUDA-core kernel) 1e-5
+absolute: it sums in its own order over up to 2304 keys.  bfloat16 (the
+tensor-core kernel): ``flash_attention.bf16_row_limit``, a limit for each
+query row.  The kernel rounds each softmax weight to bf16 before PV (l
+sums them unrounded), a relative change of at most 2 ** -9 per weight,
+which moves output j of a row by at most 2 ** -9 * sum_k p_k |v_kj|;
+both sides then round to bf16, half a step each at the row's magnitude
+(one step at magnitude m is ``2 ** (floor(log2 m) - 7)``).  So a row's
+limit is two bf16 steps at its largest |output| plus 2 ** -9 times its
+largest sum_k p_k |v_kj|.  A row that averages about 2000 unit-normal
+values has outputs near 0.04 but sums near 0.8, so the second term
+dominates there: about 2.7e-3 in all.  The limit must see a wrong kernel:
+the plain version with one in-band 64-key tile left out of PV breaks it.
 
 The JAX package is imported inside the ``J`` fixture, so on a machine
 with a card and no jax this file still imports and the CUDA cases run.
 """
-import math
 import types
 
 import numpy as np
@@ -30,11 +38,24 @@ from repro_torch.kernels.chunked_attention import NEG_INF, decode_attention
 TOL_F32 = 1e-5
 
 
-def _cuda_tol(want: torch.Tensor) -> float:
+def _limit(q, k, v, want, causal, window):
+    """float32: TOL_F32; bf16: the limit of each query row."""
     if want.dtype == torch.float32:
         return TOL_F32
-    m = want.float().abs().max().item()
-    return 2 * 2.0 ** (math.floor(math.log2(m)) - 7)
+    return fa.bf16_row_limit(q, k, v, want, causal=causal, window=window)
+
+
+def _within(got, want, limit) -> bool:
+    return bool(((got.float() - want.float()).abs() <= limit).all())
+
+
+def _without_tile(v, s):
+    """v with the 64-key tile at the middle of its S keys zeroed: the
+    plain version on it is a kernel that leaves that tile out of PV."""
+    lo = s // 2 // 64 * 64
+    out = v.clone()
+    out[:, :, lo:lo + 64] = 0
+    return out
 
 
 @pytest.fixture(scope="module")
@@ -150,6 +171,25 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
     assert out.shape == q.shape and fa.launches == before
 
 
+@pytest.mark.parametrize("dtype, d, entry", [
+    (torch.bfloat16, 256, "repro_flash_attention_sm90"),
+    (torch.bfloat16, 64, "repro_flash_attention_sm90"),
+    (torch.float32, 256, "repro_flash_attention"),
+    (torch.float32, 64, "repro_flash_attention")], ids=str)
+def test_wrapper_routes_each_type_to_its_kernel(dtype, d, entry):
+    """bf16 to the tensor-core kernel, float32 to the CUDA-core one."""
+    assert fa.kernel_for(dtype, d) == entry
+
+
+@pytest.mark.parametrize("dtype, d, error", [
+    (torch.float16, 256, TypeError), (torch.float64, 64, TypeError),
+    (torch.bfloat16, 128, ValueError), (torch.float32, 32, ValueError)],
+    ids=str)
+def test_wrapper_routes_no_other_type_or_head_dim(dtype, d, error):
+    with pytest.raises(error):
+        fa.kernel_for(dtype, d)
+
+
 def test_wrapper_rejects_bad_arguments():
     q = torch.zeros((1, 4, 8, 32))
     with pytest.raises(ValueError):
@@ -162,18 +202,75 @@ def test_wrapper_rejects_bad_arguments():
         ops.attention(q, q[:, :2], q[:, :2], window=0)
 
 
+def _p_rounded(q, k, v, causal, window):
+    """The tensor-core kernel's rounding in plain torch: float32 scores
+    and weights, each weight rounded to bf16 before PV, l summed from the
+    unrounded weights, the output rounded to bf16."""
+    group = q.shape[1] // k.shape[1]
+    kx, vx = (x.repeat_interleave(group, dim=1).float() for x in (k, v))
+    logits = torch.einsum("bhtd,bhsd->bhts", q.float(), kx) / q.shape[3] ** 0.5
+    mask = ref.attention_mask(q.shape[2], k.shape[2], causal, window)
+    logits = logits.masked_fill(~mask, float("-inf"))
+    p = torch.exp(logits - logits.amax(-1, keepdim=True)).nan_to_num(0.0)
+    l = p.sum(-1, keepdim=True)
+    o = torch.einsum("bhts,bhsd->bhtd", p.bfloat16().float(), vx)
+    return torch.where(l > 0, o / l, 0.0).bfloat16()
+
+
+# (B, Hq, Hkv, T, S, D, causal, window): a band of 128, a q offset, a
+# ragged S under no mask, long rows
+LIMIT_CASES = [(1, 4, 1, 300, 300, 64, True, 128),
+               (1, 2, 1, 256, 600, 64, True, None),
+               (2, 4, 2, 130, 70, 64, False, None),
+               (1, 2, 1, 200, 1200, 32, True, 1000)]
+
+
+@pytest.mark.parametrize("case", LIMIT_CASES, ids=str)
+def test_bf16_row_limit_holds_p_rounding_and_sees_a_lost_tile(case):
+    """On the CPU: the kernel's rounding, emulated, stays within every
+    row's limit; the plain version with one in-band tile left out of PV
+    does not."""
+    b, hq, hkv, t, s, d, causal, window = case
+    q, k, v = (torch.from_numpy(x).bfloat16()
+               for x in _qkv(sum(case[:6]), b, hq, hkv, t, s, d))
+    want = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    limit = fa.bf16_row_limit(q, k, v, want, causal=causal, window=window)
+    assert limit.shape == (b, hq, t, 1)
+    assert _within(_p_rounded(q, k, v, causal, window), want, limit)
+    wrong = fa.flash_attention_plain(q, k, _without_tile(v, s),
+                                     causal=causal, window=window)
+    assert not _within(wrong, want, limit)
+
+
+def test_bf16_row_limit_is_zero_on_rows_with_no_key():
+    q, k, v = (torch.from_numpy(x).bfloat16()
+               for x in _qkv(3, 1, 2, 1, 10, 6, 32))
+    want = fa.flash_attention_plain(q, k, v)
+    limit = fa.bf16_row_limit(q, k, v, want)
+    assert (limit[:, :, :4] == 0).all() and (limit[:, :, 4:] > 0).all()
+
+
 # ---------------------------------------------------------------------------
 # the hand CUDA kernel (runs only where a card is present)
 # ---------------------------------------------------------------------------
 
 # (B, Hq, Hkv, T, S, D, causal, window): ragged T and S, T < S, T > S
-# (fully masked rows), GQA groups 1, 2 and 10, D 64 and 256
+# (fully masked rows; at T = 300, S = 20 whole query tiles see no key),
+# GQA groups 1, 2 and 10, D 64 and 256
 CUDA_CASES = [(2, 4, 4, 64, 64, 64, True, None),
               (1, 10, 1, 100, 300, 256, True, 128),
               (2, 4, 2, 77, 77, 64, False, None),
               (1, 4, 2, 37, 130, 64, False, 40),
               (1, 2, 1, 70, 20, 64, True, None),
+              (1, 2, 1, 300, 20, 256, True, None),
               (2, 10, 1, 200, 200, 256, True, None)]
+# the serve path's own prefill shapes (recurrentgemma-2b, window 2048:
+# the flat prefill and the batch-1 molecule prefill), and T and S that
+# are multiples of neither the 128-row query tile nor the 64-key KV tile
+PATH_CASES = [(8, 10, 1, 2304, 2304, 256, True, 2048),
+              (1, 10, 1, 2048, 2048, 256, True, 2048),
+              (2, 10, 1, 201, 333, 256, True, 100),
+              (1, 4, 2, 130, 70, 64, False, None)]
 
 
 @pytest.mark.cuda
@@ -188,8 +285,7 @@ def test_cuda_flash_attention_matches_plain(cuda, case, dtype):
     want = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     assert fa.launches == before + 1 and got.dtype == dtype
-    err = (got.float() - want.float()).abs().max().item()
-    assert err <= _cuda_tol(want), err
+    assert _within(got, want, _limit(q, k, v, want, causal, window))
 
 
 @pytest.mark.cuda
@@ -200,3 +296,34 @@ def test_cuda_flash_attention_rejects_unbuilt_head_dim(cuda):
     with pytest.raises(ValueError):
         fa.flash_attention(q.transpose(2, 3), q.transpose(2, 3),
                            q.transpose(2, 3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", PATH_CASES, ids=str)
+def test_cuda_flash_attention_bf16_at_path_shapes(cuda, case):
+    """Within each row's limit, which a kernel that left one in-band
+    64-key tile out of PV would break."""
+    b, hq, hkv, t, s, d, causal, window = case
+    q, k, v = (torch.from_numpy(x).to(cuda, torch.bfloat16)
+               for x in _qkv(sum(case[:6]), b, hq, hkv, t, s, d))
+    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    want = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    limit = _limit(q, k, v, want, causal, window)
+    assert _within(got, want, limit)
+    wrong = fa.flash_attention_plain(q, k, _without_tile(v, s),
+                                     causal=causal, window=window)
+    assert not _within(wrong, want, limit)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_cuda_flash_attention_counts_each_kernel(cuda, dtype):
+    """bf16 moves only the tensor-core count, float32 only the CUDA-core
+    one; ``launches`` is their sum."""
+    q = torch.zeros((1, 2, 70, 64), device=cuda, dtype=dtype)
+    before = (fa.tensor_core_launches, fa.cuda_core_launches, fa.launches)
+    fa.flash_attention(q, q[:, :1].contiguous(), q[:, :1].contiguous())
+    torch.cuda.synchronize()
+    tc = int(dtype == torch.bfloat16)
+    assert (fa.tensor_core_launches, fa.cuda_core_launches, fa.launches) == \
+        (before[0] + tc, before[1] + 1 - tc, before[2] + 1)

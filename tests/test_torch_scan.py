@@ -10,7 +10,10 @@ Tolerances: against the sequential ``linear_scan_ref``, 1e-6 absolute
 Against the Pallas kernel, 1e-5 absolute: it runs an associative
 prefix scan inside each time block, another summation order.  On the
 card the kernel equals the plain version exactly: both take each step
-as one rounded multiply and one rounded add.
+as one rounded multiply and one rounded add.  The card's cases include
+the serve path's prefill shapes, (8, 2304, 2560) and (1, 2048, 2560),
+and D = 129 and 300, whose rows the kernel cannot copy in 16-byte
+pieces.
 """
 import types
 
@@ -124,7 +127,9 @@ def test_wrapper_rejects_bad_arguments():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
 @pytest.mark.parametrize("case", [(8, 1, 2560, True), (8, 1, 2560, False),
                                   (3, 77, 300, True), (2, 1000, 129, False),
-                                  (1, 2048, 2560, False)], ids=str)
+                                  (1, 2048, 2560, False),
+                                  (8, 2304, 2560, False),
+                                  (1, 2048, 2560, True)], ids=str)
 def test_cuda_linear_scan_matches_plain_exactly(cuda, case, dtype):
     x, a, h0 = (None if z is None else torch.from_numpy(z).to(cuda)
                 for z in _inputs(sum(case[:3]), *case))
