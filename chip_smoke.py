@@ -24,7 +24,8 @@ Phases, each an assertion (any failure exits non-zero):
    ``eval_raw`` on the original store;
 5. each kernel's launches on the main path, its time beside its plain
    version's, its bound and a library yardstick, at the main path's
-   shapes;
+   shapes (``sig_hash``'s bound counts the work it must do: the valid
+   rows' reads and hashes, and every signature written);
 6. kernel parity: ``flash_attention`` and ``linear_scan`` against their
    plain torch versions on the card over random inputs (bf16 and
    float32, ragged T and S, T < S, GQA groups 1/2/10, D 64/256, causal
@@ -38,10 +39,11 @@ Phases, each an assertion (any failure exits non-zero):
    both (which records the kernels' inputs for phase 8); both LM
    kernels must launch (flash only as its bf16 tensor-core kernel),
    every logit be finite, and the next-token logits of the two policies
-   agree; then the two policies again in float32 on a reduced config
-   (flash only as its float32 CUDA-core kernel), where they must agree
-   to float32 rounding (tight enough to see a last prompt token decoded
-   twice);
+   agree; then (7b) the two policies again in float32 on a reduced
+   config (flash only as its float32 CUDA-core kernel), where they must
+   agree to float32 rounding (tight enough to see a last prompt token
+   decoded twice), and the float32 kernel against its plain version on
+   the inputs that path gave it;
 8. both LM kernels against their plain versions on the inputs phase 7
    launched them with (one per distinct shape; bf16 flash within each
    query row's limit, which a control -- the plain version with one
@@ -55,9 +57,13 @@ Phase 7 also traces one flat prefill and four decode steps with
 ``torch.profiler`` and prints the device's busy and idle share and the
 kernels that took most of its time.
 
-The last two lines are the ``{"kernels": [...]}`` record and the
-``{"ok": true, "device": ...}`` line.  Without CUDA, or without the
-package beside this file, it exits non-zero and prints no result.
+The last two lines are the ``{"kernels": [...]}`` record -- five routes:
+``sig_hash``, ``seg_count``, ``flash_attention`` (bf16, tensor cores;
+launches of phase 7), ``flash_attention_f32`` (float32, CUDA cores;
+launches of phase 7b, its time at the flat-prefill shape) and
+``linear_scan`` -- and the ``{"ok": true, "device": ...}`` line.
+Without CUDA, or without the package beside this file, it exits
+non-zero and prints no result.
 """
 from __future__ import annotations
 
@@ -107,7 +113,7 @@ PARITY_K = (2, 3, 8, 32)
 # with one in-band 64-key tile left out of PV must break it.
 # linear_scan: bit-exact (both take each step as one rounded multiply and
 # one rounded add).
-TOL = {"flash_attention": {"float32": 1e-5},
+TOL = {"flash_attention_f32": {"float32": 1e-5},
        "linear_scan": {"float32": 0.0, "bfloat16": 0.0}}
 FLASH_BF16_STEPS = 2
 # phase 7: the flat and the auto policy reach the same next-token logits
@@ -195,14 +201,14 @@ def max_abs_diff(a, b) -> int:
 # phase 2: kernel parity
 # ---------------------------------------------------------------------------
 
-# per kernel: largest difference from its plain version, the largest
-# limit a case was held to, cases checked
-ERR = {"sig_hash": 0, "seg_count": 0, "flash_attention": 0.0,
-       "linear_scan": 0.0}
-LIMIT = {"sig_hash": 0, "seg_count": 0, "flash_attention": 0.0,
-         "linear_scan": 0.0}
-CASES = {"sig_hash": 0, "seg_count": 0, "flash_attention": 0,
-         "linear_scan": 0}
+# per kernel route (flash_attention: the bf16 tensor-core kernel;
+# flash_attention_f32: the float32 CUDA-core one): largest difference from
+# its plain version, the largest limit a case was held to, cases checked
+ROUTES = ("sig_hash", "seg_count", "flash_attention", "flash_attention_f32",
+          "linear_scan")
+ERR = {name: 0.0 for name in ROUTES}
+LIMIT = {name: 0.0 for name in ROUTES}
+CASES = {name: 0 for name in ROUTES}
 
 
 def parity_case(mat, kw: dict, what: str, seg: bool = True) -> None:
@@ -538,15 +544,29 @@ def kernel_times(parent, kw) -> dict:
     s32 = srt.view(torch.int32)
 
     out = {}
-    sig_bytes = n_b * k_b * 4 + c_b * k_b * 4 + n_b + c_b * n_b * 8
+    # the work the kernel must do: it hashes only valid rows (the rest get
+    # the sentinel) and reads only the valid rows of the parent, once for
+    # all candidates; every signature, sentinels too, is written
+    valid = kw["valid"]
+    n_valid = int(valid.sum())
+    sig_bytes = (n_valid * k_b * 4 + valid.numel() + c_b * k_b * 4 +
+                 c_b * n_b * 8)
     # per row and column, both lanes: 3 IMAD + 3 ALU (mul, rotl, mul;
     # xor, rotl, mul-add) per lane, plus the mask multiply (IMAD) and
     # the hi lane's seed xor (ALU); per lane fmix32(h ^ K): 2 IMAD, 7 ALU
-    sig_imad = c_b * n_b * (7 * k_b + 4)
-    sig_alu = c_b * n_b * (7 * k_b + 14)
+    sig_imad = c_b * n_valid * (7 * k_b + 4)
+    sig_alu = c_b * n_valid * (7 * k_b + 14)
+    # the count before it (every row hashed, the parent read once): the
+    # INT32 pipe's time for all c_b * n_b rows
+    log(f"sig_hash bound over all {n_b} rows, as counted before: "
+        f"{c_b * n_b * (7 * k_b + 14) / INT32_PIPE_OPS_PER_S * 1e3:.4f} ms "
+        f"(operations); over the {n_valid} valid rows: bytes "
+        f"{sig_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms, operations "
+        f"{max(sig_imad, sig_alu) / INT32_PIPE_OPS_PER_S * 1e3:.4f} ms")
     out["sig_hash"] = dict(
         shape=f"parent ({n_b}, {k_b}) int32, masks ({c_b}, {k_b}), "
-              f"valid ({n_b},) -> ({c_b}, {n_b}, 2) uint32",
+              f"valid ({n_b},) with {n_valid} set -> ({c_b}, {n_b}, 2) "
+              "uint32",
         ms=time_ms(lambda: sig_hash(parent, **kw)),
         plain_ms=time_ms(lambda: sig_hash_plain(parent, **kw), 5, 1),
         library_ms=None,
@@ -591,7 +611,7 @@ def float_case(name: str, got, want, what: str, limit=None) -> float:
             f"{float(want.float().abs().max()):.4g}, row limits "
             f"{float(limit[limit > 0].min()):.4g}..{tol:.4g}, worst row "
             f"{worst:.3f} of its limit")
-    elif name == "flash_attention":
+    elif name == "flash_attention_f32":
         log(f"  flash {what}: max |delta| {e:.4g}, tolerance {tol:.4g}")
     assert ok, f"{name} disagrees with its plain version: {what} " \
         f"max |delta| {e}"
@@ -615,8 +635,9 @@ def flash_case(q, k, v, kw: dict, what: str, control: bool = False
     want = flash_attention_plain(q, k, v, **kw)
     limit = (bf16_row_limit(q, k, v, want, steps=FLASH_BF16_STEPS, **kw)
              if q.dtype == torch.bfloat16 else None)
-    e = float_case("flash_attention", flash_attention(q, k, v, **kw), want,
-                   what, limit)
+    route = ("flash_attention" if q.dtype == torch.bfloat16
+             else "flash_attention_f32")
+    e = float_case(route, flash_attention(q, k, v, **kw), want, what, limit)
     if control:
         s = k.shape[2]
         lo = s // 2 // 64 * 64
@@ -673,7 +694,8 @@ def lm_kernel_parity(dev) -> None:
                     f"causal={causal} window={window}")
             e = flash_case(q, k, v, {"causal": causal, "window": window},
                            what)
-            key = ("flash_attention", str(dtype))
+            key = ("flash_attention" if dtype == torch.bfloat16
+                   else "flash_attention_f32", str(dtype))
             worst[key] = max(worst.get(key, 0.0), e)
         for b, t, d, with_h0 in SCAN_CASES:
             x = torch.from_numpy(rng.standard_normal((b, t, d)).astype(
@@ -687,10 +709,12 @@ def lm_kernel_parity(dev) -> None:
             key = ("linear_scan", str(dtype))
             worst[key] = max(worst.get(key, 0.0), e)
     for (name, dt), e in sorted(worst.items()):
-        tol = TOL[name].get(dt.removeprefix("torch."), "the row limits")
+        tol = TOL.get(name, {}).get(dt.removeprefix("torch."),
+                                    "the row limits")
         log(f"parity: {name} {dt}: max |delta| {e:.3g} (tolerance {tol})")
-    log(f"parity: flash_attention {CASES['flash_attention']} cases, "
-        f"linear_scan {CASES['linear_scan']} cases, all within tolerance")
+    log(f"parity: flash_attention {CASES['flash_attention']} bf16 and "
+        f"{CASES['flash_attention_f32']} float32 cases, linear_scan "
+        f"{CASES['linear_scan']} cases, all within tolerance")
 
 
 # ---------------------------------------------------------------------------
@@ -919,12 +943,13 @@ def lm_policy_parity_f32(dev) -> dict[str, int]:
         for _ in range(n)])
     res = {}
     reset_launches()
-    for policy in ("flat", "auto"):
-        eng = Engine(model, cache_len=length + new, chunk=8, policy=policy,
-                     device=dev)
-        for i, p in enumerate(toks):
-            eng.submit(Request(rid=i, tokens=p, max_new=new))
-        res[policy] = (eng.run(keep_logits=True), eng.logits)
+    with Recorder() as rec:
+        for policy in ("flat", "auto"):
+            eng = Engine(model, cache_len=length + new, chunk=8,
+                         policy=policy, device=dev)
+            for i, p in enumerate(toks):
+                eng.submit(Request(rid=i, tokens=p, max_new=new))
+            res[policy] = (eng.run(keep_logits=True), eng.logits)
     kinds = flash_kernel_launches()
     assert kinds["tensor_core"] == 0 and kinds["cuda_core"] > 0, \
         f"float32 prefills launched {kinds}"
@@ -947,6 +972,11 @@ def lm_policy_parity_f32(dev) -> dict[str, int]:
     assert a_out == f_out, "float32 flat and auto tokens differ"
     assert delta <= LM_F32_TOL, f"float32 flat/auto logits differ by {delta}"
     assert fault > 10 * LM_F32_TOL, "the check cannot see a double decode"
+    # the float32 kernel against its plain version on the inputs this
+    # path gave it (after the counts were read)
+    for q, k, v, kw in rec.flash.values():
+        flash_case(q, k, v, kw, f"float32 path q {tuple(q.shape)} kv "
+                                f"{tuple(k.shape)} {kw}")
     return kinds
 
 
@@ -1020,8 +1050,8 @@ def lm_path_parity_and_times(rec) -> dict:
     log(f"lm main-path parity: flash q/kv shapes "
         f"{[(k[0], k[1]) for k in rec.flash]}, scan shapes "
         f"{[(k[0], 'no h0' if k[2] else 'h0') for k in rec.scan]}; max "
-        f"|delta| flash "
-        f"{ERR['flash_attention']:.3g}, scan {ERR['linear_scan']:.3g}")
+        f"|delta| flash bf16 {ERR['flash_attention']:.3g}, float32 "
+        f"{ERR['flash_attention_f32']:.3g}, scan {ERR['linear_scan']:.3g}")
 
     # every recorded shape (the flash prefills; the scan's prefills and
     # its decode step), largest first: the flat prefill's numbers go into
@@ -1036,10 +1066,11 @@ def lm_path_parity_and_times(rec) -> dict:
     q, k, v = q.float(), k.float(), v.float()
     flash_case(q, k, v, kw, f"path q {tuple(q.shape)} kv {tuple(k.shape)} "
                             f"as float32 {kw}")
-    flash_times(q, k, v, kw)
+    f32 = flash_times(q, k, v, kw)
     del q, k, v
     torch.cuda.empty_cache()
-    return {"flash_attention": flash[0], "linear_scan": scan[0]}
+    return {"flash_attention": flash[0], "flash_attention_f32": f32,
+            "linear_scan": scan[0]}
 
 
 def main() -> int:
@@ -1130,7 +1161,8 @@ def main() -> int:
     t0 = time.perf_counter()
     lm_launches, rec = lm_serve(dev)
     totals.update(lm_launches)
-    lm_policy_parity_f32(dev)
+    # the float32 serve path (phase 7b) is the float32 kernel's own path
+    totals["flash_attention_f32"] = lm_policy_parity_f32(dev)["cuda_core"]
     log(f"lm serve phase: {time.perf_counter() - t0:.1f} s")
 
     # phase 8
@@ -1138,9 +1170,11 @@ def main() -> int:
     times.update(lm_path_parity_and_times(rec))
     log(f"lm path parity and timing phase: {time.perf_counter() - t0:.1f} s")
 
-    # the main path launches flash_attention as its bf16 tensor-core kernel
+    # the bf16 serve path launches flash_attention as its tensor-core
+    # kernel, the float32 one as its CUDA-core kernel
     src = "src/repro_torch/kernels/csrc/"
-    source = {"flash_attention": "flash_attention_sm90.cu"}
+    source = {"flash_attention": "flash_attention_sm90.cu",
+              "flash_attention_f32": "flash_attention.cu"}
     record = {"kernels": [
         {"name": name, "route": "cuda",
          "source": src + source.get(name, f"{name}.cu"),
@@ -1154,6 +1188,8 @@ def main() -> int:
             ("sig_hash", "src/repro/kernels/sig_hash.py:61"),
             ("seg_count", "src/repro/kernels/seg_count.py:46"),
             ("flash_attention", "src/repro/kernels/flash_attention.py:78"),
+            ("flash_attention_f32",
+             "src/repro/kernels/flash_attention.py:78"),
             ("linear_scan", "src/repro/kernels/linear_scan.py:49"))]}
     for k in record["kernels"]:
         assert k["launches"] > 0 and k["max_abs_err"] <= LIMIT[k["name"]], k

@@ -95,7 +95,8 @@ def library() -> ctypes.CDLL:
     if _LIB is None:
         lib = ctypes.CDLL(str(build()))
         p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-        lib.repro_sig_hash.argtypes = [p, i64, i32, i64, p, i64, p, i64, p, p]
+        lib.repro_sig_hash.argtypes = [p, i64, i32, i64, p, i64, i64, p, i64,
+                                       p, p]
         lib.repro_sig_hash.restype = i32
         lib.repro_seg_count.argtypes = [p, i64, i64, p, p, p]
         lib.repro_seg_count.restype = i32

@@ -2,17 +2,23 @@
 
 Replaces the Pallas TPU kernel ``repro/kernels/sig_hash.py::sig_hash``
 (``_hash_block``, ``_sig_hash_kernel``, ``_sig_hash_kernel_batched``).
-The kernel is ``csrc/sig_hash.cu``: one thread per row, grid
-``(cdiv(N, 256), C)``, the column mask and the padded-row sentinel
-applied inside, so the candidate-masked ``(C, N, K)`` stack the
-reference materializes never exists.
+The kernel is ``csrc/sig_hash.cu``: one thread per row, which loads its
+row once into registers and loops over the candidates, the column masks
+staged in shared memory and the padded-row sentinel applied inside.  So
+the fused sweep form reads the ``(N, K)`` parent once for all C
+candidates (a row whose ``(N,)`` valid flag is False not at all), and
+the candidate-masked ``(C, N, K)`` stack the reference materializes
+never exists.  A second grid axis over chunks of candidates
+(:func:`candidate_chunks`) is added only where the rows alone leave the
+card underfilled.
 
-What bounds it on an H100: per masked row ``7K + 4`` IMADs on the FMA
-pipe and ``7K + 14`` shifts and logic ops on the INT32 pipe, each pipe
-64 lanes per clock per SM, against ``4K + 8`` bytes of traffic.  At the
-sweep's (N=2^21, K=8, C=8) the busier INT32 pipe's floor (0.070 ms)
-and HBM's (0.061 ms) nearly meet; the kernel keeps both hash lanes in
-registers and reads the parent once per candidate.
+What bounds it on an H100, counted over the work it must do: per valid
+row and candidate ``7K + 4`` IMADs on the FMA pipe and ``7K + 14``
+shifts and logic ops on the INT32 pipe, each pipe 64 lanes per clock
+per SM, against one read of the valid rows, the valid flags and the
+masks and ``C * N * 8`` bytes of signatures written.  At the sweep's
+(N=2^21, K=8, C=8) with 1.11M valid rows the bytes set it (about
+0.051 ms); the operations take about 0.037 ms.
 
 Dispatch goes by the tensor's device: a CPU tensor runs
 :func:`sig_hash_plain`, a CUDA tensor launches the kernel (or raises).
@@ -48,6 +54,25 @@ def _check_args(mat, valid, col_masks):
         raise ValueError(f"valid must be bool of shape {shapes}, got "
                          f"{tuple(valid.shape)} {valid.dtype}")
     return c, n
+
+
+THREADS = 256            # rows per block (csrc/sig_hash.cu kThreads)
+BLOCKS_PER_SM = 8        # 256-thread blocks an SM holds at once
+
+
+def candidate_chunks(n: int, c: int, sm_count: int) -> int:
+    """Chunks of the C candidates along the kernel's second grid axis: 1
+    where ``cdiv(n, THREADS)`` row blocks fill ``sm_count`` SMs at
+    ``BLOCKS_PER_SM`` each, else as many as make up the shortfall (at most
+    C, and at most 65535).  Each chunk reads the rows once."""
+    if n < 1 or c < 1 or sm_count < 1:
+        raise ValueError(f"candidate_chunks takes n, c, sm_count >= 1, got "
+                         f"{n}, {c}, {sm_count}")
+    blocks = -(-n // THREADS)
+    fill = sm_count * BLOCKS_PER_SM
+    if blocks >= fill:
+        return 1
+    return min(c, -(-fill // blocks), 65535)
 
 
 def sig_hash_plain(mat: torch.Tensor, valid: torch.Tensor | None = None,
@@ -95,9 +120,11 @@ def sig_hash(mat: torch.Tensor, valid: torch.Tensor | None = None,
     if n == 0 or c == 0:
         return out
     from .build import check, library
+    chunks = candidate_chunks(n, c, torch.cuda.get_device_properties(
+        mat.device).multi_processor_count)
     err = library().repro_sig_hash(
         mat.data_ptr(), n, k, n * k if mat.ndim == 3 else 0,
-        col_masks.data_ptr() if col_masks is not None else None, c,
+        col_masks.data_ptr() if col_masks is not None else None, c, chunks,
         valid.data_ptr() if valid is not None else None,
         n if valid is not None and valid.ndim == 2 else 0,
         out.data_ptr(), torch.cuda.current_stream(mat.device).cuda_stream)

@@ -250,6 +250,71 @@ def test_bf16_row_limit_is_zero_on_rows_with_no_key():
     assert (limit[:, :, :4] == 0).all() and (limit[:, :, 4:] > 0).all()
 
 
+def _tile_schedule(q, k, v, causal, window, tq=64, tk=256):
+    """The float32 CUDA-core kernel's schedule in plain torch: per 64-row
+    query tile, the 256-key KV tiles from the band's first key, each taken
+    as float32 scores, a running max and sum rescaled once per tile in the
+    kernel's order (corr = exp(m - m_new), l = l * corr + sum p, acc =
+    acc * corr + P V), and acc / l at the end (0 where l = 0)."""
+    b, hq, t, d = q.shape
+    hkv, s = k.shape[1], k.shape[2]
+    out = torch.zeros_like(q)
+    neg = -1e30
+    for q0 in range(0, t, tq):
+        rows = torch.arange(q0, min(q0 + tq, t))
+        qpos = rows + s - t
+        k_begin = max(0, int(qpos[0]) - window + 1) if window else 0
+        k_end = min(s, int(qpos[-1]) + 1) if causal else s
+        qt = q[:, :, rows]
+        m = torch.full((b, hq, len(rows), 1), neg)
+        l = torch.zeros((b, hq, len(rows), 1))
+        acc = torch.zeros((b, hq, len(rows), d))
+        for k0 in range(k_begin, k_end, tk):
+            keys = torch.arange(k0, min(k0 + tk, s))
+            kt = k[:, :, keys].repeat_interleave(hq // hkv, dim=1)
+            vt = v[:, :, keys].repeat_interleave(hq // hkv, dim=1)
+            ok = torch.ones((len(rows), len(keys)), dtype=torch.bool)
+            if causal:
+                ok &= keys[None, :] <= qpos[:, None]
+            if window:
+                ok &= keys[None, :] > qpos[:, None] - window
+            sc = torch.where(ok, (qt @ kt.transpose(-1, -2)) / d ** 0.5, neg)
+            m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+            corr = torch.exp(m - m_new)
+            p = torch.where(ok, torch.exp(sc - m_new), 0.0)
+            l = l * corr + p.sum(-1, keepdim=True)
+            acc = acc * corr + p @ vt
+            m = m_new
+        out[:, :, rows] = torch.where(l > 0, acc / l, 0.0)
+    return out
+
+
+# (B, Hq, Hkv, T, S, D, causal, window): T and S off the 64-row and
+# 256-key tiles, several key tiles a row, T < S, a window under one V
+# chunk (32 keys), fully masked rows, GQA groups 1, 2 and 10
+SCHEDULE_CASES = [(1, 2, 1, 150, 700, 64, True, None),
+                  (1, 4, 2, 70, 600, 64, True, 300),
+                  (2, 2, 2, 65, 513, 32, False, None),
+                  (1, 10, 1, 100, 300, 64, True, 17),
+                  (1, 2, 1, 330, 60, 32, True, None),
+                  (1, 2, 1, 96, 257, 256, False, 50)]
+
+
+@pytest.mark.parametrize("case", SCHEDULE_CASES, ids=str)
+def test_float32_tile_schedule_matches_plain(case):
+    """The CUDA-core kernel's online softmax over 256-key tiles, in its
+    rescale order, stays within 1e-5 of the plain version in float32: its
+    rounding fits the tolerance before the card runs it."""
+    b, hq, hkv, t, s, d, causal, window = case
+    q, k, v = (torch.from_numpy(x)
+               for x in _qkv(sum(case[:6]), b, hq, hkv, t, s, d))
+    got = _tile_schedule(q, k, v, causal, window)
+    want = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    assert _within(got, want, TOL_F32)
+    if t > s and causal:
+        assert (got[:, :, :t - s] == 0).all()
+
+
 # ---------------------------------------------------------------------------
 # the hand CUDA kernel (runs only where a card is present)
 # ---------------------------------------------------------------------------
@@ -286,6 +351,36 @@ def test_cuda_flash_attention_matches_plain(cuda, case, dtype):
     torch.cuda.synchronize()
     assert fa.launches == before + 1 and got.dtype == dtype
     assert _within(got, want, _limit(q, k, v, want, causal, window))
+
+
+# float32 at the CUDA-core kernel's tile edges (64 query rows, 256-key
+# tiles, 32-key V chunks): T and S one off a tile either way, T < S, a
+# window under one V chunk, fully masked rows (T > S), GQA groups 1, 2
+# and 10, D 64 and 256
+F32_EDGE_CASES = [(1, 2, 2, 63, 255, 64, True, None),
+                  (1, 2, 1, 65, 257, 64, True, None),
+                  (2, 4, 2, 127, 511, 256, False, None),
+                  (1, 10, 1, 129, 400, 256, True, 17),
+                  (1, 10, 1, 64, 1000, 64, True, 31),
+                  (1, 4, 2, 200, 130, 256, True, None),
+                  (1, 2, 1, 300, 33, 64, False, 33),
+                  (2, 10, 1, 513, 513, 256, True, 300)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", F32_EDGE_CASES, ids=str)
+def test_cuda_flash_attention_float32_at_tile_edges(cuda, case):
+    b, hq, hkv, t, s, d, causal, window = case
+    q, k, v = (torch.from_numpy(x).to(cuda)
+               for x in _qkv(sum(case[:6]), b, hq, hkv, t, s, d))
+    before = fa.cuda_core_launches
+    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    want = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.cuda_core_launches == before + 1
+    assert _within(got, want, TOL_F32)
+    if t > s and causal:
+        assert (got[:, :, :t - s] == 0).all()
 
 
 @pytest.mark.cuda

@@ -16,7 +16,8 @@ import torch
 
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.seg_count import seg_boundaries, seg_boundaries_plain
-from repro_torch.kernels.sig_hash import sig_hash, sig_hash_plain
+from repro_torch.kernels.sig_hash import (candidate_chunks, sig_hash,
+                                          sig_hash_plain)
 
 
 def _rows(rng, shape):
@@ -118,6 +119,46 @@ def test_fused_col_masks_match_masked_stack(J, valid_shape, k):
     np.testing.assert_array_equal(_np(got), want)
     want_k = np.asarray(J.ops.row_signature(stack, valid=jv, use_kernel=True))
     np.testing.assert_array_equal(_np(got), want_k)
+
+
+@pytest.mark.parametrize("k", [2, 5, 8])
+def test_plain_masks_multiply_any_int32_value(J, k):
+    """Masks other than 0/1 (3, -1, the int32 extremes) multiply the
+    column, wrapping as int32, exactly as the reference's materialized
+    stack hashed through ``repro.kernels.ref``: the semantics the fused
+    kernel keeps."""
+    rng = np.random.default_rng(40 + k)
+    n = 70
+    parent = _rows(rng, (n, k))
+    masks = rng.choice(np.asarray([3, -1, 0, 1, 2**31 - 1, -2**31], np.int32),
+                       (6, k))
+    masks[0], masks[1] = 3, -1
+    valid = rng.random(n) < 0.8
+    got = sig_hash_plain(torch.from_numpy(parent), torch.from_numpy(valid),
+                         torch.from_numpy(masks))
+    stack = parent[None].astype(np.int64) * masks[:, None, :]
+    stack = stack.astype(np.int32)                 # int32 wraparound
+    want = np.asarray(J.ref.row_signature_ref(J.jnp.asarray(stack)))
+    want = np.where(valid[None, :, None], want, ref.SIG_SENTINEL)
+    np.testing.assert_array_equal(_np(got), want)
+
+
+@pytest.mark.parametrize("n, c, sms, want", [
+    (1 << 21, 8, 132, 1),            # the sweep: rows alone fill the card
+    (270_336, 64, 132, 1),           # exactly 8 blocks an SM
+    (100_000, 8, 132, 3),            # 391 blocks: 3 chunks make 1173
+    (4096, 64, 132, 64),             # a small molecule table, Q = 64
+    (1, 65535, 132, 1056),           # one block: chunks fill 8 per SM
+    (1, 3, 132, 3),                  # no more chunks than candidates
+    (1, 200_000, 100_000, 65535)])   # the grid's limit
+def test_candidate_chunks(n, c, sms, want):
+    assert candidate_chunks(n, c, sms) == want
+
+
+@pytest.mark.parametrize("args", [(0, 8, 132), (10, 0, 132), (10, 8, 0)])
+def test_candidate_chunks_rejects_empty_arguments(args):
+    with pytest.raises(ValueError):
+        candidate_chunks(*args)
 
 
 @pytest.mark.parametrize("batched", [False, True])
@@ -228,3 +269,38 @@ def test_cuda_seg_count_matches_plain(cuda, n):
         b, c = seg_boundaries(s)
         pb, pc = seg_boundaries_plain(s)
         assert torch.equal(b, pb) and torch.equal(c, pc)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c, n", [(1, 1000), (7, 70001), (64, 4099),
+                                  (65535, 37)])
+@pytest.mark.parametrize("k", [2, 3, 5, 8, 32])
+def test_cuda_sig_hash_candidates_match_plain(cuda, c, n, k):
+    """The fused form at C = 1, 7, 64 and 65535 (a grid that splits the
+    candidates into chunks), masks other than 0/1 among them, runtime and
+    compile-time K, ragged N, valid of both shapes; bit for bit."""
+    rng = np.random.default_rng(c + n + k)
+    parent = torch.from_numpy(_rows(rng, (n, k))).to(cuda)
+    masks = rng.integers(0, 2, (c, k)).astype(np.int32)
+    masks[0, 0], masks[-1, -1] = 3, -1
+    masks = torch.from_numpy(masks).to(cuda)
+    v_n = torch.from_numpy(rng.random(n) < 0.6).to(cuda)
+    v_cn = torch.from_numpy(rng.random((c, n)) < 0.6).to(cuda)
+    for kw in ({"col_masks": masks}, {"col_masks": masks, "valid": v_n},
+               {"col_masks": masks, "valid": v_cn}):
+        got = sig_hash(parent, **kw)
+        want = sig_hash_plain(parent, **kw)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_cuda_sig_hash_unaligned_parent_matches_plain(cuda):
+    """A parent that starts off a 16-byte boundary takes scalar loads."""
+    rng = np.random.default_rng(5)
+    base = torch.from_numpy(_rows(rng, (1001, 8))).to(cuda)
+    parent = base.view(-1)[1:1 + 1000 * 8].view(1000, 8)
+    masks = torch.from_numpy(rng.integers(0, 2, (5, 8)).astype(np.int32)
+                             ).to(cuda)
+    got = sig_hash(parent, col_masks=masks)
+    want = sig_hash_plain(parent, col_masks=masks)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
