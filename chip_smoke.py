@@ -22,6 +22,21 @@ Phases, each an assertion (any failure exits non-zero):
 4. star queries: ``QueryEngine.query_batch(backend="device")`` over 64
    queries built from the molecule tables, each answer identical to
    ``eval_raw`` on the original store;
+4b. the compressed tier of phase 3's store (``store.compressed()``: at
+   most half the plain substrate's bytes): ``Compactor("gfsp", "device")``
+   and ``Compactor("efsp", "device")`` with ``run(cstore, stream=True)``,
+   whose sweeps get each class's object matrix decoded one predicate
+   partition at a time -- plans, per-class results, G' sha1 and digest
+   identical to phase 3's device runs, both kernels launched, the decode
+   peak (``DECODE_STATS``) at most 35% of the plain substrate, the device
+   memory peak printed beside the plain plan's -- and phase 4's queries
+   on its G' with identical answers;
+4c. the gSpan-counted detectors on the 800-observation sensor graph:
+   ``gspan``/host, ``efsp`` with ``min_support=2`` (the legacy path) and
+   ``gfsp``/device, gspan's SP and edges equal to gfsp's on every class,
+   their detect times and the gspan / gfsp ratio (the paper's baseline
+   comparison), and each kernel against its plain version at the bucket
+   shapes gfsp launched there;
 5. each kernel's launches on the main path, its time beside its plain
    version's, its bound and a library yardstick, at the main path's
    shapes (``sig_hash``'s bound counts the work it must do: the valid
@@ -298,6 +313,26 @@ def read_launches(names=("sig_hash", "seg_count")) -> dict[str, int]:
     return {n: mods[n].launches for n in names}
 
 
+# device memory allocated above the start of each plan (bytes), by
+# (detector, backend, tier)
+PLAN_DEVICE_PEAK: dict = {}
+
+
+def device_peak_start() -> int:
+    """Resets the device's peak-memory count; returns what is allocated
+    now, the base that :func:`device_peak` subtracts."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def device_peak(start: int) -> int:
+    import torch
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - start
+
+
 def plan_rows(report):
     out = []
     for e in report.plan:
@@ -317,10 +352,12 @@ def compaction(store, totals) -> tuple:
         comp = Compactor(det, be)
         sweep.reset_trace_stats()
         reset_launches()
+        mem_start = device_peak_start()
         t0 = time.perf_counter()
         plan = comp.plan(store)              # detection (the sweeps)
         torch.cuda.synchronize()
         t_plan = time.perf_counter() - t0
+        PLAN_DEVICE_PEAK[(det, be, "plain")] = device_peak(mem_start)
         report = comp.execute(store, plan)   # factorization (host)
         secs = time.perf_counter() - t0
         launched = read_launches()
@@ -444,7 +481,180 @@ def star_queries(store, fg, totals):
         f"{secs:.2f} s, launches {launched}, bucket shapes {shapes}, "
         f"{rows} binding rows, all identical to eval_raw on the original "
         "store")
-    return eng, shapes
+    return eng, shapes, queries, got
+
+
+# ---------------------------------------------------------------------------
+# phase 4b: the compressed tier, streamed
+# ---------------------------------------------------------------------------
+
+# the limits of benchmarks/check_snapshot.py, which holds the JAX package
+# to them: the compressed substrate at most half the plain one, and the
+# streamed run's decoded partitions never over 35% of the plain substrate
+MAX_COMPRESSED_FRAC = 0.5
+MAX_DECODE_RESIDENT_FRAC = 0.35
+
+
+def same_detections(got, want, what: str) -> None:
+    """Per-class results of two reports: the plan rows and every star
+    pattern (its entities and object tuple)."""
+    import numpy as np
+    assert plan_rows(got) == plan_rows(want), f"{what}: plans differ"
+    for e, w in zip(got.plan, want.plan):
+        assert len(e.detection.fsp) == len(w.detection.fsp), what
+        for (m, o), (wm, wo) in zip(e.detection.fsp, w.detection.fsp):
+            assert np.array_equal(m, wm) and np.array_equal(o, wo), \
+                f"{what}: star patterns of class {e.class_id} differ"
+
+
+def compressed_tier(store, runs, queries, answers, totals) -> None:
+    """Phase 4b."""
+    import torch
+    from repro_torch.api import Compactor
+    from repro_torch.core import sweep
+    from repro_torch.core.compress import DECODE_STATS
+    from repro_torch.query import QueryEngine
+
+    t0 = time.perf_counter()
+    cstore = store.compressed()
+    t_store = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cstore.index                       # the bit-packed CSR partitions
+    t_index = time.perf_counter() - t0
+    n = store.n_triples
+    plain_b, comp_b = store.substrate_nbytes(), cstore.substrate_nbytes()
+    log(f"compressed tier: store.compressed() {t_store:.2f} s (rows and "
+        f"front-coded dictionary) + index {t_index:.2f} s; substrate "
+        f"{plain_b} B plain ({plain_b / n:.2f} B/triple) -> {comp_b} B "
+        f"compressed ({comp_b / n:.2f} B/triple), {comp_b / plain_b:.4f} "
+        "of plain; without the dictionaries "
+        f"{store.substrate_nbytes(include_dict=False) / n:.2f} -> "
+        f"{cstore.substrate_nbytes(include_dict=False) / n:.2f} B/triple")
+    assert comp_b <= MAX_COMPRESSED_FRAC * plain_b, \
+        f"compressed substrate {comp_b} B over half of {plain_b} B"
+
+    gd_comp, gd, _ = runs[("gfsp", "device")]
+    g_sha, digest = sha1(gd.graph.spo), gd_comp.snapshot.digest()
+    fg = None
+    for det in ("gfsp", "efsp"):
+        comp = Compactor(det, "device")
+        sweep.reset_trace_stats()            # DECODE_STATS too
+        reset_launches()
+        mem_start = device_peak_start()
+        t0 = time.perf_counter()
+        plan = comp.plan(cstore, stream=True)
+        torch.cuda.synchronize()
+        t_plan = time.perf_counter() - t0
+        PLAN_DEVICE_PEAK[(det, "device", "compressed")] = \
+            device_peak(mem_start)
+        report = comp.execute(cstore, plan)
+        secs = time.perf_counter() - t0
+        launched = read_launches()
+        decode = dict(DECODE_STATS)
+        for name, k in launched.items():
+            assert k > 0, f"{name} was not launched by {det}/device " \
+                "on the compressed tier"
+            totals[name] += k
+        peaks = {t: PLAN_DEVICE_PEAK[(det, "device", t)]
+                 for t in ("plain", "compressed")}
+        log(f"compressed {det}/device run(stream=True): {secs:.2f} s (plan "
+            f"{t_plan:.2f} s, execute {secs - t_plan:.2f} s), launches "
+            f"{launched}, decode: {decode['partitions']} partitions, "
+            f"{decode['values']} values, peak resident "
+            f"{decode['peak_resident_bytes']} B = "
+            f"{decode['peak_resident_bytes'] / plain_b:.4f} of the plain "
+            f"substrate; device memory over the plan's start: "
+            f"{peaks['compressed']} B streamed compressed, "
+            f"{peaks['plain']} B plain (phase 3)")
+        assert decode["peak_resident_bytes"] <= \
+            MAX_DECODE_RESIDENT_FRAC * plain_b, \
+            f"decode peak {decode['peak_resident_bytes']} B over " \
+            f"{MAX_DECODE_RESIDENT_FRAC} of {plain_b} B"
+        same_detections(report, runs[(det, "device")][1],
+                        f"compressed {det}/device")
+        assert sha1(report.graph.spo) == g_sha, f"{det}: G' differs"
+        assert comp.snapshot.digest() == digest, f"{det}: digest differs"
+        if det == "gfsp":
+            fg = comp.fgraph
+    log(f"compressed-tier checks: plans and star patterns equal to phase "
+        f"3's device runs, G' sha1 {g_sha}, digest {digest} on both")
+
+    eng = QueryEngine(fg)
+    sweep.reset_trace_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    got = eng.query_batch(queries, backend="device")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launched = read_launches()
+    assert launched["sig_hash"] > 0, "query path did not launch sig_hash"
+    for name, k in launched.items():
+        totals[name] += k
+    for q, b, want in zip(queries, got, answers):
+        assert b.same_as(want), f"query {q} on the compressed run's G' differs"
+    log(f"compressed-tier queries: {len(queries)} via query_batch(device) in "
+        f"{secs:.2f} s, launches {launched}, every answer identical to "
+        "phase 4's")
+
+
+# ---------------------------------------------------------------------------
+# phase 4c: the gSpan-counted detectors
+# ---------------------------------------------------------------------------
+
+GSPAN_OBSERVATIONS = 800
+GSPAN_SEED = 42
+
+
+def gspan_baseline(dev, totals) -> None:
+    """Phase 4c."""
+    import numpy as np
+    import torch
+    from repro_torch.api import Compactor
+    from repro_torch.core import sweep
+    from repro_torch.data.synthetic import SensorGraphSpec, generate
+
+    store = generate(SensorGraphSpec(n_observations=GSPAN_OBSERVATIONS,
+                                     seed=GSPAN_SEED))
+    classes = [int(c) for c in store.classes()
+               if store.class_stats(int(c)).properties.shape[0] >= 2]
+    results, secs = {}, {}
+    for label, det, be, opts in (
+            ("gspan/host", "gspan", "host", {}),
+            ("efsp min_support=2/device", "efsp", "device",
+             {"min_support": 2}),
+            ("gfsp/device", "gfsp", "device", {})):
+        comp = Compactor(det, be, detector_opts=opts)
+        sweep.clear_compile_cache()      # every sweep shape shows as new
+        reset_launches()
+        t0 = time.perf_counter()
+        results[label] = {cid: comp.detect(store, cid) for cid in classes}
+        torch.cuda.synchronize()
+        secs[label] = time.perf_counter() - t0
+        launched = read_launches()
+        if det == "gfsp":
+            for name, k in launched.items():
+                assert k > 0, f"{name} was not launched by gfsp/device"
+                totals[name] += k
+            shapes = sorted(s[1:] for s in sweep.TRACE_COUNTS
+                            if s[0] == "sweep")
+        log(f"gspan phase {label}: detect {secs[label]:.4f} s over "
+            f"{len(classes)} classes, launches {launched}")
+        for cid, r in results[label].items():
+            log(f"  class {cid}: SP {r.props} edges {r.edges} ami {r.ami} "
+                f"evaluations {r.evaluations} iterations {r.iterations}")
+    for cid in classes:
+        g, f = results["gspan/host"][cid], results["gfsp/device"][cid]
+        assert (g.props, g.edges) == (f.props, f.edges), \
+            f"class {cid}: gspan {g.props}/{g.edges} != " \
+            f"gfsp {f.props}/{f.edges}"
+    # each kernel against its plain version at the sweep shapes gfsp
+    # launched here, on this graph's own parent buffers
+    sweep_parity(store, shapes, dev, np.random.default_rng(SEED))
+    log(f"gspan baseline ({store.n_triples} triples, {GSPAN_OBSERVATIONS} "
+        f"observations): gspan SP and edges equal gfsp/device on all "
+        f"{len(classes)} classes; gspan / gfsp detect time "
+        f"{secs['gspan/host'] / secs['gfsp/device']:.1f}x; sweep shapes "
+        f"{shapes} bit-exact")
 
 
 # ---------------------------------------------------------------------------
@@ -461,11 +671,41 @@ def main_path_parity(store, eng, shapes, dev):
     sweep, the shape the timings use."""
     import numpy as np
     import torch
-    from repro_torch.core.sweep import (DeviceSweepWorkspace, bucket_cols,
-                                        bucket_rows)
 
     rng = np.random.default_rng(SEED)
     sweeps = [s[1:] for s in shapes if s[0] == "sweep"]
+    timed = sweep_parity(store, sweeps, dev, rng)
+
+    for _, m_b, k_b, q_b in (s for s in shapes if s[0] == "query"):
+        buf = next(b for b in eng._bufs.values()
+                   if (b.m_bucket, b.k_bucket) == (m_b, k_b))
+        masks = np.zeros((q_b, k_b), np.int32)
+        masks[:, :buf.k] = rng.integers(0, 2, (q_b, buf.k))
+        vals = np.zeros((q_b, k_b), np.int32)
+        vals[:, :buf.k] = buf.dev[torch.from_numpy(
+            rng.integers(0, buf.m, q_b)), :buf.k].cpu().numpy()
+        masks = torch.from_numpy(masks).to(dev)
+        vals = torch.from_numpy(vals).to(dev)
+        parity_case(buf.dev, {"valid": buf.valid, "col_masks": masks},
+                    f"query table ({m_b}, {k_b}) x {q_b}", seg=False)
+        parity_case((vals * masks)[:, None, :], {},
+                    f"query tuples ({q_b}, 1, {k_b})", seg=False)
+    log(f"main-path parity: sweep shapes {sweeps}, query shapes "
+        f"{[s[1:] for s in shapes if s[0] == 'query']}; totals sig_hash "
+        f"{CASES['sig_hash']} cases, seg_count {CASES['seg_count']} cases, "
+        "all bit-exact")
+    return timed
+
+
+def sweep_parity(store, sweeps, dev, rng):
+    """Both kernels against their plain versions at each ``(n_b, k_b,
+    c_b)`` sweep shape, on the parent buffer of a class of ``store`` in
+    that bucket; returns the inputs of the widest gfsp sweep."""
+    import numpy as np
+    import torch
+    from repro_torch.core.sweep import (DeviceSweepWorkspace, bucket_cols,
+                                        bucket_rows)
+
     buckets = {(n_b, k_b) for n_b, k_b, _ in sweeps}
     parents = {}
     for cid in (int(c) for c in store.classes()):
@@ -493,26 +733,7 @@ def main_path_parity(store, eng, shapes, dev):
         parity_case(ws._dev, kw, f"sweep ({n_b}, {k_b}) x {c_b}")
         if c_b == k_b and (timed is None or n_b * k_b > timed[0].numel()):
             timed = (ws._dev, kw)
-    assert timed is not None, "no gfsp sweep on the main path"
-
-    for _, m_b, k_b, q_b in (s for s in shapes if s[0] == "query"):
-        buf = next(b for b in eng._bufs.values()
-                   if (b.m_bucket, b.k_bucket) == (m_b, k_b))
-        masks = np.zeros((q_b, k_b), np.int32)
-        masks[:, :buf.k] = rng.integers(0, 2, (q_b, buf.k))
-        vals = np.zeros((q_b, k_b), np.int32)
-        vals[:, :buf.k] = buf.dev[torch.from_numpy(
-            rng.integers(0, buf.m, q_b)), :buf.k].cpu().numpy()
-        masks = torch.from_numpy(masks).to(dev)
-        vals = torch.from_numpy(vals).to(dev)
-        parity_case(buf.dev, {"valid": buf.valid, "col_masks": masks},
-                    f"query table ({m_b}, {k_b}) x {q_b}", seg=False)
-        parity_case((vals * masks)[:, None, :], {},
-                    f"query tuples ({q_b}, 1, {k_b})", seg=False)
-    log(f"main-path parity: sweep shapes {sweeps}, query shapes "
-        f"{[s[1:] for s in shapes if s[0] == 'query']}; totals sig_hash "
-        f"{CASES['sig_hash']} cases, seg_count {CASES['seg_count']} cases, "
-        "all bit-exact")
+    assert timed is not None, "no gfsp sweep on the path"
     return timed
 
 
@@ -1144,7 +1365,18 @@ def main() -> int:
     gd_comp = check_compaction(store, runs)
 
     # phase 4
-    eng, q_shapes = star_queries(store, gd_comp.fgraph, totals)
+    eng, q_shapes, queries, answers = star_queries(store, gd_comp.fgraph,
+                                                   totals)
+
+    # phase 4b
+    t0 = time.perf_counter()
+    compressed_tier(store, runs, queries, answers, totals)
+    log(f"compressed-tier phase: {time.perf_counter() - t0:.1f} s")
+
+    # phase 4c
+    t0 = time.perf_counter()
+    gspan_baseline(dev, totals)
+    log(f"gspan phase: {time.perf_counter() - t0:.1f} s")
 
     # phase 5
     shapes = sorted({s for r in runs.values() for s in r[2]} | set(q_shapes))

@@ -6,6 +6,8 @@
     comp = Compactor(detector="gfsp", backend="device")   # runs on CUDA
     report = comp.run(store)          # auto-plans every class, factorizes
     report.graph                      # G' (original store untouched)
+    comp.run(store.compressed(), stream=True)   # the bit-packed tier,
+                                      # one class's decodes at a time
 
 It is a thin facade: all graph state lives in an immutable
 :class:`~repro_torch.api.snapshot.GraphSnapshot` built by a
@@ -29,8 +31,8 @@ from .snapshot import (ClassPlan, CompactionPlan, CompactionPlanner,  # noqa: F4
 class Compactor:
     """Configurable detect -> plan -> factorize pipeline (Algorithms 1-3).
 
-    ``detector``/``backend`` accept registered names ("gfsp"/"efsp",
-    "host"/"device") or constructed strategy instances;
+    ``detector``/``backend`` accept registered names ("gfsp"/"efsp"/
+    "gspan", "host"/"device") or constructed strategy instances;
     ``detector_opts``/``backend_opts`` are forwarded when a name is given
     (e.g. ``backend="device", backend_opts={"device": "cpu"}``).
     """
@@ -62,9 +64,12 @@ class Compactor:
         return self.planner.detect(store, class_id, props=props)
 
     def plan(self, store: TripleStore,
-             classes: Iterable[int] | None = None) -> CompactionPlan:
-        """Rank all (or the given) classes by predicted #Edges savings."""
-        return self.planner.plan(store, classes)
+             classes: Iterable[int] | None = None, *,
+             stream: bool = False) -> CompactionPlan:
+        """Rank all (or the given) classes by predicted #Edges savings.
+        ``stream=True`` drops the store's transient decode caches
+        between classes (see :meth:`CompactionPlanner.plan`)."""
+        return self.planner.plan(store, classes, stream=stream)
 
     def execute(self, store: TripleStore,
                 plan: CompactionPlan) -> CompactionReport:
@@ -75,9 +80,10 @@ class Compactor:
         return report
 
     def run(self, store: TripleStore,
-            classes: Iterable[int] | None = None) -> CompactionReport:
+            classes: Iterable[int] | None = None, *,
+            stream: bool = False) -> CompactionReport:
         """plan + execute in one call (the common entry point)."""
-        return self.execute(store, self.plan(store, classes))
+        return self.execute(store, self.plan(store, classes, stream=stream))
 
     @property
     def snapshot(self) -> GraphSnapshot:

@@ -10,11 +10,17 @@ materialized star patterns):
 ``efsp``   Algorithm 1, the exhaustive breadth-first scan over the
            property-subset lattice: each lattice level (all ``C(n, j)``
            size-j subsets) is ONE candidate batch through
-           ``SweepWorkspace.sweep_candidates``.
+           ``SweepWorkspace.sweep_candidates``.  ``min_support > 1`` or
+           a pre-built ``subgraphs_dict`` selects the legacy
+           gSpan-counted scan instead.
+``gspan``  the honest gSpan-cost baseline: the full pattern space is
+           enumerated (exponential, as the paper's Table 3 measures) and
+           only mined property subsets are scored.  With complete
+           molecules the detected SP coincides with efsp/gfsp.
 
-The gSpan-counted variants -- ``efsp`` with ``min_support > 1`` or a
-``subgraphs_dict``, and the ``gspan`` baseline -- need the gSpan miner,
-a later slice of the port; they raise ``NotImplementedError``.
+The gSpan-counted paths consume pre-counted pattern multiplicities on the
+host, so their results are backend-independent; they accept the backend
+argument to keep ``Compactor`` wiring uniform.
 """
 from __future__ import annotations
 
@@ -24,15 +30,13 @@ from typing import Protocol, Sequence, runtime_checkable
 
 import numpy as np
 
+from ..core.efsp import build_subgraphs_dict
 from ..core.gfsp import FSPResult
-from ..core.star import StarSweepResult, star_groups
+from ..core.star import StarSweepResult, num_edges, star_groups
 from ..core.sweep import MAX_SWEEP_CANDIDATES, pick_child
 from ..core.triples import TripleStore
 from ..registry import Registry
 from .backends import ExecutionBackend, HostBackend, get_backend  # noqa: F401
-
-_GSPAN_LATER = ("needs the gSpan miner (core/gspan.py, core/efsp.py), which "
-                "is not ported to repro_torch yet (ROADMAP.md, queue 1)")
 
 
 @runtime_checkable
@@ -123,21 +127,31 @@ class ExhaustiveDetector:
     single candidate batch through ``SweepWorkspace.sweep_candidates``.
     The entity universe is the workspace's (entities complete over S),
     shared with G.FSP, so efsp <-> gfsp parity is exact by construction.
+
+    Passing a pre-built ``subgraphs_dict`` (property subset ->
+    ``[(object_tuple, support), ...]``), or ``min_support > 1``, runs the
+    legacy gSpan-counted scan instead -- the paper-literal Algorithm 1
+    over a mined pattern space.
     """
 
     name = "efsp"
 
     def __init__(self, min_support: int = 1) -> None:
+        # only consulted by the legacy gSpan-counted path (the mining
+        # threshold); the lattice engine evaluates every subset exactly
         self.min_support = min_support
 
     def detect(self, store, class_id, *, backend=None, props=None,
                subgraphs_dict=None):
-        if subgraphs_dict is not None or self.min_support > 1:
-            raise NotImplementedError(
-                "efsp with min_support > 1 or a subgraphs_dict "
-                + _GSPAN_LATER)
         t0 = time.perf_counter()
         s_all, n_s, am = _class_setup(store, class_id, props)
+        if subgraphs_dict is None and self.min_support > 1:
+            # a mining threshold only exists in the gSpan pattern space
+            subgraphs_dict, _, _ = build_subgraphs_dict(
+                store, class_id, min_support=self.min_support)
+        if subgraphs_dict is not None:
+            return self._detect_from_patterns(store, class_id, s_all, n_s,
+                                              am, subgraphs_dict, t0)
         backend = backend if backend is not None else HostBackend()
         best: StarSweepResult | None = None
         iterations = evaluations = 0
@@ -177,14 +191,78 @@ class ExhaustiveDetector:
         return _result(store, class_id, best, am, iterations,
                        evaluations, t0)
 
+    def _detect_from_patterns(self, store, class_id, s_all, n_s, am,
+                              subgraphs_dict, t0):
+        """Legacy Algorithm 1 over a pre-mined gSpan pattern space."""
+        best: StarSweepResult | None = None
+        iterations = evaluations = 0
+        s_list = [int(p) for p in s_all]
+        for subset_card in range(n_s, 1, -1):
+            iterations += 1
+            for combo in itertools.combinations(s_list, subset_card):
+                subgraphs = subgraphs_dict.get(frozenset(combo), [])
+                evaluations += 1
+                # countEdges(subgraphs): factorized edge count of Def. 4.8
+                a = len(subgraphs)
+                total = num_edges(a, am, subset_card, n_s)
+                if best is None or total < best.edges:
+                    best = StarSweepResult(
+                        props=tuple(sorted(combo)), ami=a, am=am,
+                        n_total_props=n_s, edges=total)
+        if best is None:
+            best = StarSweepResult(props=(), ami=0, am=am,
+                                   n_total_props=n_s, edges=0)
+        return _result(store, class_id, best, am, iterations,
+                       evaluations, t0)
+
 
 class GSpanBaseline:
-    """Placeholder for the gSpan-cost baseline detector."""
+    """Score only the property subsets gSpan actually mined.
+
+    The candidate space is exactly the mined pattern space: one evaluation
+    per distinct property subset appearing in ``subgraphsDict`` (>= 2
+    properties), rather than E.FSP's full ``2^n`` combination scan.  Under
+    the paper's complete-molecule assumption every subset of S is mined,
+    so the detected SP coincides with E.FSP/G.FSP; the detector exists as
+    the honest gSpan-cost baseline (enumeration time dominates).
+    """
 
     name = "gspan"
 
-    def __init__(self, *args, **kwargs) -> None:
-        raise NotImplementedError("detector 'gspan' " + _GSPAN_LATER)
+    def __init__(self, min_support: int = 1,
+                 max_edges: int | None = None) -> None:
+        self.min_support = min_support
+        self.max_edges = max_edges
+
+    def detect(self, store, class_id, *, backend=None, props=None):
+        t0 = time.perf_counter()
+        s_all, n_s, am = _class_setup(store, class_id, props)
+        allowed = {int(p) for p in s_all}
+        subgraphs_dict, _, _ = build_subgraphs_dict(
+            store, class_id, min_support=self.min_support,
+            max_edges=self.max_edges)
+        best: StarSweepResult | None = None
+        evaluations = 0
+        # larger subsets first, then by sorted props; ties keep the first
+        for key in sorted(subgraphs_dict, key=lambda k: (-len(k),
+                                                         tuple(sorted(k)))):
+            if len(key) < 2 or not key.issubset(allowed):
+                continue
+            evaluations += 1
+            a = len(subgraphs_dict[key])
+            total = num_edges(a, am, len(key), n_s)
+            if best is None or total < best.edges:
+                best = StarSweepResult(props=tuple(sorted(key)), ami=a,
+                                       am=am, n_total_props=n_s, edges=total)
+        if best is None:       # nothing mined: keep the full set unscored
+            if n_s:
+                best = (backend or HostBackend()).evaluate(
+                    store, class_id, tuple(int(p) for p in s_all), n_s, am)
+                evaluations += 1
+            else:
+                best = StarSweepResult(props=(), ami=0, am=am,
+                                       n_total_props=n_s, edges=0)
+        return _result(store, class_id, best, am, 1, evaluations, t0)
 
 
 DETECTORS = Registry("detector")

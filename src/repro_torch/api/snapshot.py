@@ -191,10 +191,20 @@ class CompactionPlanner:
                                     backend=self.backend, props=props)
 
     def plan(self, store: TripleStore,
-             classes: Iterable[int] | None = None) -> CompactionPlan:
-        """Rank all (or the given) classes by predicted #Edges savings."""
+             classes: Iterable[int] | None = None, *,
+             stream: bool = False) -> CompactionPlan:
+        """Rank all (or the given) classes by predicted #Edges savings.
+
+        ``stream=True`` releases the store's transient decode caches
+        between classes (compressed tier: resident CSR partitions,
+        per-class entity vectors, sorted-object caches), so detection
+        over an out-of-core-scale graph holds at most one class's
+        working set uncompressed at a time -- peak host memory is bounded
+        by the largest class bucket, not the graph."""
         cids = ([int(c) for c in classes] if classes is not None
                 else [int(c) for c in store.classes()])
+        release = getattr(store, "release_transients", None) \
+            if stream else None
         entries = []
         for cid in cids:
             stats = store.class_stats(cid)
@@ -204,12 +214,16 @@ class CompactionPlanner:
                 continue                      # nothing star-shaped to share
             res = self.detect(store, cid)
             if len(res.props) < 2:
+                if release is not None:
+                    release()
                 continue
             entry = ClassPlan(class_id=cid, props=tuple(sorted(res.props)),
                               predicted_edges=res.edges,
                               baseline_edges=am * n_s, detection=res)
             if entry.predicted_savings >= self.min_predicted_savings:
                 entries.append(entry)
+            if release is not None:
+                release()
         entries.sort(key=lambda e: -e.predicted_savings)
         return CompactionPlan(entries=entries, detector=self.detector.name,
                               backend=self.backend.name)
@@ -234,10 +248,11 @@ class CompactionPlanner:
         return snap, report
 
     def run(self, store: TripleStore,
-            classes: Iterable[int] | None = None
+            classes: Iterable[int] | None = None, *,
+            stream: bool = False
             ) -> tuple[GraphSnapshot, CompactionReport]:
         """plan + execute in one call (the common entry point)."""
-        return self.execute(store, self.plan(store, classes))
+        return self.execute(store, self.plan(store, classes, stream=stream))
 
 
 __all__ = ["ClassPlan", "CompactionPlan", "CompactionReport",

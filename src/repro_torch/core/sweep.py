@@ -90,10 +90,25 @@ def _note_trace(kind: str, shape: tuple) -> None:
     TRACE_COUNTS[key] = TRACE_COUNTS.get(key, 0) + 1
 
 
+# auxiliary per-module counter resets (e.g. core.compress's DECODE_STATS)
+# hook in here so one reset_trace_stats() call clears every accounting
+# surface
+_EXTRA_STAT_RESETS: list = []
+
+
+def register_stats_reset(fn) -> None:
+    """Register an extra zero-the-counters callback invoked by
+    :func:`reset_trace_stats` (idempotent per function)."""
+    if fn not in _EXTRA_STAT_RESETS:
+        _EXTRA_STAT_RESETS.append(fn)
+
+
 def reset_trace_stats() -> None:
     TRACE_COUNTS.clear()
     EXEC_STATS["lowerings"] = 0
     EXEC_STATS["descents"] = 0
+    for fn in _EXTRA_STAT_RESETS:
+        fn()
 
 
 def clear_compile_cache() -> None:

@@ -218,6 +218,22 @@ class TripleStore:
             total += self.dict.nbytes()
         return total
 
+    def compressed(self, *, max_resident: int = 8,
+                   compact_dict: bool = True) -> "TripleStore":
+        """This graph re-hosted on the compressed tier (bit-packed
+        delta-encoded CSR partitions + front-coded dictionary) behind
+        the same accessor surface.  Ids are preserved, so detect/query
+        results and digests are identical."""
+        from .compress import compress_store
+        return compress_store(self, max_resident=max_resident,
+                              compact_dict=compact_dict)
+
+    @property
+    def is_compressed(self) -> bool:
+        """Tier predicate: ``True`` on the compressed tier (overridden
+        there)."""
+        return False
+
     @property
     def n_triples(self) -> int:
         return int(self._spo.shape[0])

@@ -137,11 +137,25 @@ def test_lm_serving_runs_on_cpu_when_asked(capsys):
 
 
 def test_later_slices_raise_not_implemented():
+    """The gSpan-counted detectors, stubs that raised NotImplementedError
+    until the gSpan miner was ported, now run and give the reference's
+    plan on the same store (the name is kept from the stub check)."""
+    from repro.api import Compactor as JCompactor
+    from repro.data.synthetic import SensorGraphSpec, generate
     from repro_torch.api import Compactor
-    with pytest.raises(NotImplementedError, match="gSpan"):
-        Compactor("gspan")
-    with pytest.raises(NotImplementedError, match="gSpan"):
-        Compactor("efsp", detector_opts={"min_support": 2}).run(_small_store())
+    ref = generate(SensorGraphSpec(n_observations=60, seed=1))
+    store = _small_store()
+    assert store.spo.tobytes() == ref.spo.tobytes()
+    for det, opts in (("gspan", {}), ("efsp", {"min_support": 2})):
+        got = Compactor(det, detector_opts=opts).plan(store)
+        want = JCompactor(det, detector_opts=opts).plan(ref)
+        assert got.entries
+        assert [(e.class_id, e.props, e.predicted_edges, e.baseline_edges,
+                 e.detection.ami, e.detection.evaluations,
+                 e.detection.iterations) for e in got] == \
+            [(e.class_id, e.props, e.predicted_edges, e.baseline_edges,
+              e.detection.ami, e.detection.evaluations,
+              e.detection.iterations) for e in want]
 
 
 def test_store_from_arrays_rejects_ids_outside_dictionary():
