@@ -37,6 +37,46 @@ Phases, each an assertion (any failure exits non-zero):
    their detect times and the gspan / gfsp ratio (the paper's baseline
    comparison), and each kernel against its plain version at the bucket
    shapes gfsp launched there;
+4d. mutations of phase 3's G' on three twins -- phase 3's gfsp/device
+   and gfsp/host snapshots, and phase 4b's gfsp/device G' re-hosted on
+   the compressed tier -- through ``CompactionPlanner``: one id-level
+   ``apply_update`` of 9,999 triples (1,111 new entities of each class,
+   half cloning existing object tuples, half novel), one ``apply_delete``
+   of 1,000 triples (arms of support-2 molecules' members, so the payoff
+   sweep decompacts) and 100 entities, one ``redetect`` of both classes:
+   equal reports (the redetect's plans too), molecule tables and G' on
+   the twins, the compressed twin migrated to the plain tier by the
+   update (it leaves then: the delete and redetect run on the device
+   and host twins), the digest equal to a ground truth computed without
+   the code under test (the sorted, unique ``(original ∪ inserts) −
+   deletes``), ``validate()``, both kernels launched by the device
+   redetect and each held against its plain version at every bucket
+   shape the device redetect launched;
+4e. the durable online service at full size:
+   ``OnlineCompactionService.durable`` over phase 3's device snapshot
+   (device backend, a checkpoint every 4 applies) ingests 8 term-level
+   batches of ``benchmarks/scale_cell.py``'s traffic (1,000 triples of a
+   fresh sensor workload each, entities behind a per-batch prefix, every
+   third batch deleting an earlier entity), a device ``QueryEngine``
+   rebound after every step; a raise-mode fault at the sixth post-swap
+   visit crashes it, ``recover`` rebuilds it from disk and the batch is
+   resubmitted (the crashed service's checkpoint thread joined first,
+   as the process's death would end it).  The queue must drain, the
+   digest equal the ground truth, a redetect run on the device (both
+   kernels launched), none fail or be retried, phase 4's 64 queries on
+   the final snapshot equal ``eval_raw`` on the ground-truth store, and
+   each kernel match its plain version at every sweep and query bucket
+   shape the phase launched; per batch the apply and redetect times, swaps,
+   and the checkpoint bytes, the recovery report, buffer evictions and
+   the device memory peak are printed;
+4f. the crash-point sweep: the reference's recovery matrix
+   (``benchmarks/run.py``: 60 observations, 10 batches, sync checkpoints
+   every 3 applies) on the device backend, one crash at each of the six
+   fault sites at occurrence 0 and 1; the uninterrupted host and device
+   runs must agree in tables, G', redetect count and descents, every
+   cell crash, recover, drain and end digest-identical to them, no
+   service see a failed or retried redetect, and each kernel match its
+   plain version at every sweep shape the device runs launched;
 5. each kernel's launches on the main path, its time beside its plain
    version's, its bound and a library yardstick, at the main path's
    shapes (``sig_hash``'s bound counts the work it must do: the valid
@@ -73,7 +113,8 @@ Phase 7 also traces one flat prefill and four decode steps with
 kernels that took most of its time.
 
 The last two lines are the ``{"kernels": [...]}`` record -- five routes:
-``sig_hash``, ``seg_count``, ``flash_attention`` (bf16, tensor cores;
+``sig_hash``, ``seg_count`` (their launches summed over phases 3-4f),
+``flash_attention`` (bf16, tensor cores;
 launches of phase 7), ``flash_attention_f32`` (float32, CUDA cores;
 launches of phase 7b, its time at the flat-prefill shape) and
 ``linear_scan`` -- and the ``{"ok": true, "device": ...}`` line.
@@ -507,8 +548,8 @@ def same_detections(got, want, what: str) -> None:
                 f"{what}: star patterns of class {e.class_id} differ"
 
 
-def compressed_tier(store, runs, queries, answers, totals) -> None:
-    """Phase 4b."""
+def compressed_tier(store, runs, queries, answers, totals):
+    """Phase 4b; returns its gfsp compactor."""
     import torch
     from repro_torch.api import Compactor
     from repro_torch.core import sweep
@@ -535,7 +576,7 @@ def compressed_tier(store, runs, queries, answers, totals) -> None:
 
     gd_comp, gd, _ = runs[("gfsp", "device")]
     g_sha, digest = sha1(gd.graph.spo), gd_comp.snapshot.digest()
-    fg = None
+    cfg = None
     for det in ("gfsp", "efsp"):
         comp = Compactor(det, "device")
         sweep.reset_trace_stats()            # DECODE_STATS too
@@ -575,11 +616,11 @@ def compressed_tier(store, runs, queries, answers, totals) -> None:
         assert sha1(report.graph.spo) == g_sha, f"{det}: G' differs"
         assert comp.snapshot.digest() == digest, f"{det}: digest differs"
         if det == "gfsp":
-            fg = comp.fgraph
+            cfg = comp
     log(f"compressed-tier checks: plans and star patterns equal to phase "
         f"3's device runs, G' sha1 {g_sha}, digest {digest} on both")
 
-    eng = QueryEngine(fg)
+    eng = QueryEngine(cfg.fgraph)
     sweep.reset_trace_stats()
     reset_launches()
     t0 = time.perf_counter()
@@ -595,6 +636,7 @@ def compressed_tier(store, runs, queries, answers, totals) -> None:
     log(f"compressed-tier queries: {len(queries)} via query_batch(device) in "
         f"{secs:.2f} s, launches {launched}, every answer identical to "
         "phase 4's")
+    return cfg
 
 
 # ---------------------------------------------------------------------------
@@ -649,12 +691,509 @@ def gspan_baseline(dev, totals) -> None:
             f"gfsp {f.props}/{f.edges}"
     # each kernel against its plain version at the sweep shapes gfsp
     # launched here, on this graph's own parent buffers
-    sweep_parity(store, shapes, dev, np.random.default_rng(SEED))
+    sweep_parity([store], shapes, dev, np.random.default_rng(SEED))
     log(f"gspan baseline ({store.n_triples} triples, {GSPAN_OBSERVATIONS} "
         f"observations): gspan SP and edges equal gfsp/device on all "
         f"{len(classes)} classes; gspan / gfsp detect time "
         f"{secs['gspan/host'] / secs['gfsp/device']:.1f}x; sweep shapes "
         f"{shapes} bit-exact")
+
+
+# ---------------------------------------------------------------------------
+# phases 4d-4f: mutations, the durable online service, the crash sweep
+# ---------------------------------------------------------------------------
+
+# phase 4d: new entities per class (1111 x (6 + 3) = 9,999 triples on the
+# sensor schema), half cloning existing object tuples; deletes
+MUT_ENTITIES = 1111
+MUT_DELETE_TRIPLES = 1000
+MUT_DELETE_ENTITIES = 100
+# phase 4e: benchmarks/scale_cell.py's traffic, a checkpoint every 4
+# applied batches, a raise-mode crash at the sixth post-swap visit.  The
+# traffic's entities reuse existing molecules, so support drifts only by
+# the deletes' exits (one per third batch): a support-drift threshold of
+# 2 makes the second delete dirty its class, one redetect at full size
+ONLINE_BATCHES = 8
+ONLINE_BATCH_TRIPLES = 1000
+ONLINE_KW = dict(checkpoint_every=4, support_drift_threshold=2)
+ONLINE_CRASH = ("post_swap", 5)
+# phase 4f: the reference's recovery matrix (benchmarks/run.py)
+SWEEP_OBSERVATIONS = 60
+SWEEP_BATCHES = 10
+SWEEP_KW = dict(detector="gfsp", raw_residue_threshold=4,
+                support_drift_threshold=3)
+
+
+def semantic_digest(base, inserts, del_triples, del_entities) -> tuple:
+    """The ground truth, independent of the code under test: the sorted,
+    unique ``(base ∪ inserts) − deletes`` (a deleted entity takes every
+    triple it is the subject or the object of), and the first 16 hex
+    digits of its sha1 -- what ``GraphSnapshot.digest`` must give."""
+    import numpy as np
+    rows = np.concatenate([np.asarray(base, np.int32).reshape(-1, 3),
+                           np.asarray(inserts, np.int32).reshape(-1, 3)])
+    rows = rows[np.lexsort((rows[:, 2], rows[:, 1], rows[:, 0]))]
+    keep = np.ones(rows.shape[0], bool)
+    keep[1:] = (rows[1:] != rows[:-1]).any(axis=1)
+    rows = rows[keep]
+    void = np.dtype((np.void, 12))
+    gone = np.isin(np.ascontiguousarray(rows).view(void).ravel(),
+                   np.ascontiguousarray(np.asarray(
+                       del_triples, np.int32).reshape(-1, 3)).view(void)
+                   .ravel())
+    ents = np.asarray(del_entities, np.int64).reshape(-1)
+    gone |= np.isin(rows[:, 0], ents) | np.isin(rows[:, 2], ents)
+    rows = np.ascontiguousarray(rows[~gone])
+    return rows, sha1(rows)[:16]
+
+
+def mutation_inserts(store, n: int, rng) -> list:
+    """Term triples of ``n`` new complete entities of each class: the
+    first half clone an existing entity's object tuple (their molecules
+    exist), the rest carry novel objects (fresh surrogates)."""
+    term = store.dict.term
+    out = []
+    for cid in (int(c) for c in store.classes()):
+        props = store.class_properties(cid)
+        _, mat = store.object_matrix(cid, props)
+        cterm, tterm = term(cid), term(store.TYPE)
+        pterms = [term(int(p)) for p in props]
+        rows = mat[rng.integers(0, mat.shape[0], n // 2)].tolist()
+        for j in range(n):
+            s = f"e:4d/{cterm}/{j}"
+            out.append((s, tterm, cterm))
+            if j < n // 2:
+                out += [(s, p, term(o)) for p, o in zip(pterms, rows[j])]
+            else:
+                out += [(s, p, f"o:4d/{cterm}/{j}/{k}")
+                        for k, p in enumerate(pterms)]
+    return out
+
+
+def mutation_deletes(fg, rng) -> tuple:
+    """``MUT_DELETE_TRIPLES`` triples and ``MUT_DELETE_ENTITIES`` entities
+    to delete, spread over the classes: an arm of one member of each of
+    many support-2 molecules (each exit leaves its molecule below payoff,
+    which ``_payoff_sweep`` decompacts), the moved type edge of a member
+    of larger molecules, raw triples, and members of larger molecules."""
+    import numpy as np
+    store = fg.store
+    trips, ents = [], []
+    n_cls = len(fg.tables)
+    n_arm = MUT_DELETE_TRIPLES // 2 // n_cls
+    n_type = MUT_DELETE_TRIPLES // 10 // n_cls
+    n_ent = MUT_DELETE_ENTITIES // n_cls
+    for cid, t in sorted(fg.tables.items()):
+        sup = fg.support(cid)
+        two = np.flatnonzero(sup == 2)
+        for r in rng.choice(two, min(two.shape[0], n_arm),
+                            replace=False).tolist():
+            m = int(fg.members(int(t.surrogates[r]))[0])
+            j = int(rng.integers(0, t.k))
+            trips.append((m, t.props[j], int(t.objects[r, j])))
+        big = rng.choice(np.flatnonzero(sup > 2), n_type + n_ent,
+                         replace=False).tolist()
+        for i, r in enumerate(big):
+            mem = fg.members(int(t.surrogates[r]))
+            if i < n_type:
+                trips.append((int(mem[0]), store.TYPE, cid))
+            else:
+                ents.append(int(mem[-1]))
+    spo = store.spo
+    raw = spo[(spo[:, 1] != store.INSTANCE_OF) & (spo[:, 1] != store.TYPE)
+              & ~fg.is_surrogate(spo[:, 0])]
+    for i in rng.choice(raw.shape[0], MUT_DELETE_TRIPLES - len(trips),
+                        replace=False).tolist():
+        trips.append(tuple(int(x) for x in raw[i]))
+    return (np.asarray(trips, np.int32),
+            np.unique(np.asarray(ents, np.int64)))
+
+
+def report_counts(rep) -> dict:
+    """A report's counts, as equal across backends and tiers: no wall
+    times, no store, no epoch (the compressed twin's snapshot is one swap
+    ahead) and no lowerings (the host backend launches none); a plan as
+    each entry's class, star pattern and predicted and baseline edges."""
+    import dataclasses
+    out = {}
+    for f in dataclasses.fields(rep):
+        if f.name.endswith("_ms") or f.name in ("graph", "epoch",
+                                                "lowerings"):
+            continue
+        v = getattr(rep, f.name)
+        if f.name == "stats":
+            v = dataclasses.asdict(v)
+        elif f.name == "plan":
+            v = [(e.class_id, tuple(e.props), e.predicted_edges,
+                  e.baseline_edges) for e in v]
+        out[f.name] = v
+    return out
+
+
+def table_rows(fg) -> list:
+    return [(c, t.props, sha1(t.surrogates), sha1(t.objects), t.next_ordinal)
+            for c, t in sorted(fg.tables.items())]
+
+
+def mutations(store, runs, cfg, dev, totals) -> None:
+    """Phase 4d."""
+    import numpy as np
+    import torch
+    from repro_torch.core import sweep
+    from repro_torch.core.triples import TripleStore
+
+    rng = np.random.default_rng(SEED + 4)
+    comps = {"device": runs[("gfsp", "device")][0],
+             "host": runs[("gfsp", "host")][0]}
+    # phase 4b's compressed device run: its G' re-hosted on the compressed
+    # tier, so the update migrates it to the plain tier
+    t0 = time.perf_counter()
+    snaps = {k: c.snapshot for k, c in comps.items()}
+    planners = {k: c.planner for k, c in comps.items()}
+    snaps["compressed"] = cfg.snapshot.next(cfg.fgraph.with_store(
+        cfg.graph.compressed(compact_dict=False)))
+    planners["compressed"] = cfg.planner
+    log(f"mutations: compressed G' ({snaps['compressed'].n_triples} "
+        f"triples) in {time.perf_counter() - t0:.2f} s")
+    assert snaps["compressed"].store.is_compressed
+
+    def step(what, fn, twins=("device", "host")):
+        reps, secs, launched, shapes = {}, {}, {}, None
+        for k in twins:
+            if k == "device":
+                sweep.clear_compile_cache()  # every sweep shape shows as new
+            reset_launches()
+            t0 = time.perf_counter()
+            snaps[k], reps[k] = fn(planners[k], snaps[k])
+            torch.cuda.synchronize()
+            secs[k] = time.perf_counter() - t0
+            launched[k] = read_launches()
+            if k == "device":
+                shapes = sorted(s[1:] for s in sweep.TRACE_COUNTS
+                                if s[0] == "sweep")
+        counts = {k: report_counts(r) for k, r in reps.items()}
+        assert all(c == counts["device"] for c in counts.values()), \
+            f"{what}: reports differ {counts}"
+        rows = {k: table_rows(snaps[k].fgraph) for k in twins}
+        g = {k: sha1(snaps[k].store.spo) for k in twins}
+        assert all(r == rows["device"] for r in rows.values()), \
+            f"{what}: molecule tables differ"
+        assert len(set(g.values())) == 1, f"{what}: G' differs {g}"
+        log(f"mutations {what}: " + ", ".join(
+            f"{k} {secs[k]:.2f} s" for k in secs) + f"; G' sha1 "
+            f"{g['device']}, {snaps['device'].n_triples} triples, epoch "
+            f"{snaps['device'].epoch}; {counts['device']}")
+        return reps, launched, shapes
+
+    d = store.dict
+    ins = mutation_inserts(store, MUT_ENTITIES, rng)
+    flat = [x for t in ins for x in t]
+    rows = d.ids(flat).reshape(-1, 3)
+    cdict = snaps["compressed"].store.dict
+    assert cdict is not d
+    assert np.array_equal(cdict.ids(flat).reshape(-1, 3), rows), \
+        "the two dictionaries minted different ids"
+    step("update", lambda p, s: p.apply_update(s, rows),
+         ("device", "host", "compressed"))
+    # migrated: from here on the compressed twin would run the plain
+    # tier's code, as the other two do
+    assert not snaps["compressed"].store.is_compressed
+    del snaps["compressed"], planners["compressed"]
+
+    del_trips, del_ents = mutation_deletes(snaps["device"].fgraph, rng)
+    reps, _, _ = step("delete", lambda p, s: p.apply_delete(
+        s, triples=del_trips, entities=del_ents))
+    st = reps["device"].stats
+    assert st.n_exits > 0 and st.n_decompacted > 0, st
+
+    cids = [int(c) for c in store.classes()]
+    reps, launched, shapes = step("redetect",
+                                  lambda p, s: p.redetect(s, cids))
+    red = reps["device"]
+    assert red.descents > 0 and tuple(red.considered) == tuple(sorted(cids))
+    for name, n in launched["device"].items():
+        assert n > 0, f"{name} was not launched by the device redetect"
+        totals[name] += n
+    log(f"mutations redetect launches: {launched}; sweep shapes {shapes}")
+
+    # the G' and their tables are equal (asserted per step), so their
+    # expansions are: one digest stands for all
+    gt_rows, gt = semantic_digest(store.spo, rows, del_trips, del_ents)
+    digest = snaps["device"].digest()
+    assert digest == gt, f"digest {digest} != ground truth {gt}"
+    snaps["device"].fgraph.validate()
+    # each kernel against its plain version at the shapes the device
+    # redetect launched, on the parent buffers of the redetected classes
+    # (both classes decompacted: the base store is the semantic graph)
+    sweep_parity([TripleStore.from_ids(d, gt_rows, presorted=True)],
+                 shapes, dev, np.random.default_rng(SEED))
+    log(f"mutations checks: reports (redetect plans included), tables and "
+        f"G' equal on device and host (and compressed through the update); "
+        f"digest {gt} == ground truth "
+        f"({gt_rows.shape[0]} triples); validate ok; sweep shapes {shapes} "
+        "bit-exact")
+
+
+def online_batches(store, n: int) -> list:
+    """``benchmarks/scale_cell.py``'s traffic: per batch the first
+    ``ONLINE_BATCH_TRIPLES`` triples of a fresh 2,000-triple sensor
+    workload, entity terms (subjects, and objects that are subjects)
+    behind a per-batch prefix; every third batch also deletes an entity
+    inserted two batches before."""
+    from repro_torch.data.synthetic import WorkloadSpec, generate_workload
+    out = []
+    for b in range(n):
+        batch = generate_workload(WorkloadSpec(
+            shape="sensor", n_triples=2_000, seed=SEED + 101 + b))
+        subs = set(batch.spo[:, 0].tolist())
+        t = batch.dict.term
+        trips = [(f"b{b}/{t(s)}", t(p), f"b{b}/{t(o)}" if o in subs
+                  else t(o))
+                 for s, p, o in batch.spo[:ONLINE_BATCH_TRIPLES].tolist()]
+        dels = [trips[0][0].replace(f"b{b}/", f"b{b - 2}/", 1)] \
+            if b % 3 == 2 else None
+        out.append((trips, dels))
+    return out
+
+
+def assert_no_failures(svc, what: str) -> None:
+    """A redetect that failed (and was skipped) or was retried leaves the
+    digest as it was: the service's channels must show none."""
+    m = svc.metrics_summary()
+    for ch in ("redetect.failures", "fault.retries"):
+        n = m[ch]["count"] if ch in m else 0
+        assert n == 0, f"{what}: {ch} count {n}"
+
+
+def process_death(svc) -> None:
+    """What the death of ``svc``'s process would end: its in-flight
+    checkpoint thread (its error, the crash's, is dropped)."""
+    try:
+        svc._join_checkpoint()
+    except Exception:
+        pass
+
+
+def durable_online(store, snap, backend, queries, dev, totals) -> None:
+    """Phase 4e."""
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.core import sweep
+    from repro_torch.dist.fault import FaultPlan, InjectedFault
+    from repro_torch.online import OnlineCompactionService, recover
+    from repro_torch.query import QueryEngine, eval_raw
+    from repro_torch.core.triples import TripleStore
+
+    seq = online_batches(store, ONLINE_BATCHES)
+    kw = dict(ONLINE_KW, backend=backend)
+    root = tempfile.mkdtemp(prefix="chip_smoke_online_")
+    mem_start = device_peak_start()
+    reset_launches()
+    sweep.clear_compile_cache()          # every shape shows as new
+    qbufs = {}                           # query shape -> a table there
+    try:
+        t0 = time.perf_counter()
+        svc = OnlineCompactionService.durable(
+            root, snap, fault_plan=FaultPlan(ONLINE_CRASH[0],
+                                             occurrence=ONLINE_CRASH[1]),
+            **kw)
+        log(f"online: durable service over {snap.n_triples} triples, "
+            f"initial checkpoint in {time.perf_counter() - t0:.2f} s")
+        eng = QueryEngine(svc.fgraph, epoch=svc.snapshot.epoch,
+                          metrics=svc.metrics)
+        probe = queries[:8]
+        fell, rec = False, None
+        for b, (ins, dels) in enumerate(seq):
+            for _ in range(2):
+                try:
+                    svc.submit(inserts=ins, delete_entities=dels)
+                    while True:
+                        rep = svc.step()
+                        if rep is None:
+                            break
+                        eng.rebind(svc.fgraph, svc.snapshot.epoch)
+                        eng.query_batch(probe, backend="device")
+                        note_query_buffers(eng, qbufs)
+                        red = rep.redetect
+                        log(f"online batch {b} (seq {rep.seq}): apply "
+                            f"{rep.latency_ms:.1f} ms, epoch "
+                            f"{rep.epoch_before} -> {rep.epoch_after}, "
+                            + (f"redetect {red.exec_time_ms:.1f} ms of "
+                               f"classes {list(red.considered)} "
+                               f"({red.descents} descents, "
+                               f"{'rejected' if red.rejected else 'kept'}, "
+                               f"{red.edges_before} -> {red.edges_after} "
+                               "triples)" if red is not None
+                               else "no redetect")
+                            + f", swaps {svc.swap_count}")
+                    break
+                except InjectedFault as e:
+                    assert not fell, "crashed twice"
+                    fell = True
+                    log(f"online batch {b}: {e}; recovering")
+                    process_death(svc)
+                    assert_no_failures(svc, "online, before the crash")
+                    svc = recover(root, **kw)
+                    rec = svc.last_recovery
+                    log(f"online recovery: {rec.as_dict()}")
+                    eng.rebind(svc.fgraph, svc.snapshot.epoch)
+            else:
+                raise AssertionError(f"batch {b} kept crashing")
+        svc.checkpoint(wait=True)
+        svc.close()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launched = read_launches()
+        peak = device_peak(mem_start)
+        m = svc.metrics_summary()
+        assert fell and rec is not None, "the armed fault never fired"
+        assert svc.queue.depth == 0, "queue not drained"
+        assert m["redetect.ms"]["count"] > 0, "no redetect ran"
+        assert_no_failures(svc, "online")
+        for name, n in launched.items():
+            assert n > 0, f"{name} was not launched by the online service"
+            totals[name] += n
+        d = svc.snapshot.store.dict
+        ins_ids = np.asarray([[d.lookup(x) for x in t] for ins, _ in seq
+                              for t in ins], np.int64).astype(np.int32)
+        del_ids = [d.lookup(e) for _, dels in seq for e in (dels or [])]
+        assert None not in del_ids
+        gt_rows, gt = semantic_digest(store.spo, ins_ids,
+                                      np.empty((0, 3), np.int32), del_ids)
+        digest = svc.snapshot.digest()
+        assert digest == gt, f"online digest {digest} != ground truth {gt}"
+        gt_store = TripleStore.from_ids(d, gt_rows, presorted=True)
+        got = eng.query_batch(queries, backend="device")
+        note_query_buffers(eng, qbufs)
+        for q, g in zip(queries, got):
+            assert g.same_as(eval_raw(gt_store, q)), \
+                f"query {q} on the online snapshot differs from eval_raw"
+        # each kernel against its plain version at every shape the phase
+        # launched: the redetect's sweeps on a parent of the store after
+        # (or, had a class left its bucket, before) the phase, the queries
+        # on the molecule tables they ran on
+        sweeps = sorted(s[1:] for s in sweep.TRACE_COUNTS if s[0] == "sweep")
+        rng = np.random.default_rng(SEED)
+        sweep_parity([gt_store, store], sweeps, dev, rng)
+        query_parity(qbufs, dev, rng)
+        log(f"online: {len(seq)} batches in {secs:.2f} s; checkpoint "
+            f"{m['checkpoint.bytes']['last']:.0f} B (count "
+            f"{m['checkpoint.count']['count']}); redetects "
+            f"{m['redetect.ms']['count']} ({m['redetect.ms']['total']:.1f} "
+            f"ms); apply ms mean {m['ingest.batch_ms']['mean']:.1f}; buffer "
+            f"evictions {eng.buffer_evictions}; launches {launched}; device "
+            f"memory peak {peak} B over the phase's start; digest {digest} "
+            f"== ground truth; {len(queries)} queries equal eval_raw on the "
+            f"ground-truth store; no redetect failed or was retried; sweep "
+            f"shapes {sweeps} and query shapes {sorted(s[1:] for s in qbufs)} "
+            "bit-exact")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def crash_sweep(backend, dev, totals) -> None:
+    """Phase 4f."""
+    import tempfile
+    import numpy as np
+    from repro_torch.core import sweep
+    from repro_torch.data.synthetic import SensorGraphSpec, generate
+    from repro_torch.dist.fault import SITES, FaultPlan, InjectedFault
+    from repro_torch.online import OnlineCompactionService, recover
+
+    def build_store():
+        return generate(SensorGraphSpec(n_observations=SWEEP_OBSERVATIONS,
+                                        seed=5))
+
+    def batches(store, n):
+        term = store.dict.term
+        cid = int(store.classes()[0])
+        props = np.asarray(store.class_properties(cid))
+        cterm, tterm = term(cid), term(store.TYPE)
+        pterms = [term(int(p)) for p in props]
+        out = []
+        for i in range(n):
+            ins = []
+            for j in range(3):
+                s = f"e:n/b{i}/{j}"
+                ins.append((s, tterm, cterm))
+                ins += [(s, p, f"o:novel/b{i}/{j}/{k}")
+                        for k, p in enumerate(pterms)]
+            out.append((ins, [f"e:n/b{i - 2}/0"] if i % 3 == 2 else None))
+        return out
+
+    kw = dict(SWEEP_KW, backend=backend, retry_sleep=lambda _: None)
+    seq = batches(build_store(), SWEEP_BATCHES)
+    sweep.clear_compile_cache()          # every shape shows as new
+    want, refs = {}, {}
+    for label, be in (("host", "host"), ("device", backend)):
+        ref = OnlineCompactionService(build_store(), **dict(kw, backend=be))
+        for ins, dels in seq:
+            ref.submit(inserts=ins, delete_entities=dels)
+            ref.drain()
+        assert_no_failures(ref, f"crash sweep, uninterrupted {label} run")
+        want[label] = ref.snapshot.digest()
+        m = ref.metrics_summary()
+        refs[label] = (table_rows(ref.snapshot.fgraph),
+                       sha1(ref.snapshot.store.spo),
+                       m.get("redetect.ms", {"count": 0})["count"],
+                       m.get("redetect.descents", {"total": 0})["total"])
+    assert want["host"] == want["device"], want
+    assert refs["host"] == refs["device"], \
+        "crash sweep: the uninterrupted host and device runs differ in " \
+        "tables, G', redetect count or descents"
+    assert refs["device"][2] > 0, "crash sweep: no redetect ran"
+    end_store = ref.snapshot.fgraph.expand()
+    reset_launches()
+    cells = 0
+    for site in SITES:
+        for occ in (0, 1):
+            root = tempfile.mkdtemp(prefix="chip_smoke_crash_")
+            try:
+                svc = OnlineCompactionService.durable(
+                    root, build_store(),
+                    fault_plan=FaultPlan(site, occurrence=occ),
+                    checkpoint_every=3, checkpoint_async=False, **kw)
+                crashed = False
+                for ins, dels in seq:
+                    for _ in range(2):
+                        try:
+                            svc.submit(inserts=ins, delete_entities=dels)
+                            svc.drain()
+                            break
+                        except InjectedFault:
+                            crashed = True
+                            assert_no_failures(svc, f"{site} occ={occ}")
+                            svc = recover(root, **kw)
+                    else:
+                        raise AssertionError(f"{site} kept crashing")
+                svc.close()
+            finally:
+                shutil.rmtree(root, ignore_errors=True)
+            rec = svc.last_recovery
+            ok = svc.snapshot.digest() == want["device"]
+            log(f"crash sweep {site:16s} occ={occ}: crashed={crashed} "
+                f"parity={ok} drained={svc.queue.depth == 0} checkpoint "
+                f"{rec.checkpoint_bytes} B, replay {rec.replay_ms:.1f} ms, "
+                f"batches {rec.batches_pending}, mints {rec.mints_replayed}")
+            assert crashed and ok and svc.queue.depth == 0, (site, occ)
+            assert_no_failures(svc, f"{site} occ={occ}, recovered")
+            cells += 1
+    launched = read_launches()
+    for name, n in launched.items():
+        assert n > 0, f"{name} was not launched by the crash sweep"
+        totals[name] += n
+    # each kernel against its plain version at every sweep shape the
+    # device runs launched (the one class that grows crosses a row
+    # bucket: its parent before the batches or after them)
+    sweeps = sorted(s[1:] for s in sweep.TRACE_COUNTS if s[0] == "sweep")
+    sweep_parity([build_store(), end_store], sweeps, dev,
+                 np.random.default_rng(SEED))
+    log(f"crash sweep: {cells} cells crashed, recovered and ended "
+        f"digest-identical ({want['device']}) to the uninterrupted run; "
+        f"uninterrupted host and device runs equal in tables, G' and "
+        f"{refs['device'][2]} redetects; no redetect failed or was retried; "
+        f"launches {launched}; sweep shapes {sweeps} bit-exact")
 
 
 # ---------------------------------------------------------------------------
@@ -670,15 +1209,45 @@ def main_path_parity(store, eng, shapes, dev):
     launch ``sig_hash`` only).  Returns the inputs of the widest gfsp
     sweep, the shape the timings use."""
     import numpy as np
-    import torch
 
     rng = np.random.default_rng(SEED)
     sweeps = [s[1:] for s in shapes if s[0] == "sweep"]
-    timed = sweep_parity(store, sweeps, dev, rng)
+    timed = sweep_parity([store], sweeps, dev, rng)
+    queries = {s: query_buffer(eng, s) for s in shapes if s[0] == "query"}
+    query_parity(queries, dev, rng)
+    log(f"main-path parity: sweep shapes {sweeps}, query shapes "
+        f"{[s[1:] for s in queries]}; totals sig_hash "
+        f"{CASES['sig_hash']} cases, seg_count {CASES['seg_count']} cases, "
+        "all bit-exact")
+    return timed
 
-    for _, m_b, k_b, q_b in (s for s in shapes if s[0] == "query"):
-        buf = next(b for b in eng._bufs.values()
-                   if (b.m_bucket, b.k_bucket) == (m_b, k_b))
+
+def query_buffer(eng, shape):
+    """An uploaded molecule table of ``eng`` in the ``("query", m_b, k_b,
+    q_b)`` bucket."""
+    return next(b for b in eng._bufs.values()
+                if (b.m_bucket, b.k_bucket) == tuple(shape[1:3]))
+
+
+def note_query_buffers(eng, keep: dict) -> None:
+    """Keeps, for each query bucket shape launched since the last
+    ``clear_compile_cache`` and not yet in ``keep``, a molecule table of
+    ``eng`` in that bucket -- a reference, so a later ``rebind`` that
+    evicts it from the engine leaves it for :func:`query_parity`."""
+    from repro_torch.core import sweep
+    for s in sweep.TRACE_COUNTS:
+        if s[0] == "query" and s not in keep:
+            keep[s] = query_buffer(eng, s)
+
+
+def query_parity(bufs: dict, dev, rng) -> None:
+    """``sig_hash`` against its plain version at each ``("query", m_b,
+    k_b, q_b)`` shape of ``bufs``, on that molecule table with masks and
+    values of its own molecules."""
+    import numpy as np
+    import torch
+
+    for (_, m_b, k_b, q_b), buf in sorted(bufs.items()):
         masks = np.zeros((q_b, k_b), np.int32)
         masks[:, :buf.k] = rng.integers(0, 2, (q_b, buf.k))
         vals = np.zeros((q_b, k_b), np.int32)
@@ -690,17 +1259,14 @@ def main_path_parity(store, eng, shapes, dev):
                     f"query table ({m_b}, {k_b}) x {q_b}", seg=False)
         parity_case((vals * masks)[:, None, :], {},
                     f"query tuples ({q_b}, 1, {k_b})", seg=False)
-    log(f"main-path parity: sweep shapes {sweeps}, query shapes "
-        f"{[s[1:] for s in shapes if s[0] == 'query']}; totals sig_hash "
-        f"{CASES['sig_hash']} cases, seg_count {CASES['seg_count']} cases, "
-        "all bit-exact")
-    return timed
 
 
-def sweep_parity(store, sweeps, dev, rng):
+def sweep_parity(stores, sweeps, dev, rng):
     """Both kernels against their plain versions at each ``(n_b, k_b,
-    c_b)`` sweep shape, on the parent buffer of a class of ``store`` in
-    that bucket; returns the inputs of the widest gfsp sweep."""
+    c_b)`` sweep shape, on the parent buffer of a class in that bucket,
+    taken from the first of ``stores`` that has one (a phase whose
+    classes grow passes the store from before and after); returns the
+    inputs of the widest gfsp sweep."""
     import numpy as np
     import torch
     from repro_torch.core.sweep import (DeviceSweepWorkspace, bucket_cols,
@@ -708,15 +1274,18 @@ def sweep_parity(store, sweeps, dev, rng):
 
     buckets = {(n_b, k_b) for n_b, k_b, _ in sweeps}
     parents = {}
-    for cid in (int(c) for c in store.classes()):
-        stats = store.class_stats(cid)
-        props = tuple(int(p) for p in stats.properties)
-        ws = DeviceSweepWorkspace(store, cid, props, len(props),
-                                  stats.n_instances, device=dev)
-        key = (bucket_rows(ws.matrix.shape[0]), bucket_cols(len(props)))
-        if props and key in buckets and key not in parents:
-            ws._ensure_uploaded()
-            parents[key] = ws
+    for store in stores:
+        if set(parents) == buckets:
+            break
+        for cid in (int(c) for c in store.classes()):
+            stats = store.class_stats(cid)
+            props = tuple(int(p) for p in stats.properties)
+            ws = DeviceSweepWorkspace(store, cid, props, len(props),
+                                      stats.n_instances, device=dev)
+            key = (bucket_rows(ws.matrix.shape[0]), bucket_cols(len(props)))
+            if props and key in buckets and key not in parents:
+                ws._ensure_uploaded()
+                parents[key] = ws
     assert set(parents) == buckets, (sorted(buckets), sorted(parents))
 
     timed = None
@@ -1370,13 +1939,31 @@ def main() -> int:
 
     # phase 4b
     t0 = time.perf_counter()
-    compressed_tier(store, runs, queries, answers, totals)
+    cfg = compressed_tier(store, runs, queries, answers, totals)
     log(f"compressed-tier phase: {time.perf_counter() - t0:.1f} s")
 
     # phase 4c
     t0 = time.perf_counter()
     gspan_baseline(dev, totals)
     log(f"gspan phase: {time.perf_counter() - t0:.1f} s")
+
+    # phase 4d
+    snap = gd_comp.snapshot
+    t0 = time.perf_counter()
+    mutations(store, runs, cfg, dev, totals)
+    del cfg
+    log(f"mutation phase: {time.perf_counter() - t0:.1f} s")
+
+    # phase 4e
+    t0 = time.perf_counter()
+    durable_online(store, snap, gd_comp.backend, queries, dev, totals)
+    del snap
+    log(f"online phase: {time.perf_counter() - t0:.1f} s")
+
+    # phase 4f
+    t0 = time.perf_counter()
+    crash_sweep(gd_comp.backend, dev, totals)
+    log(f"crash sweep phase: {time.perf_counter() - t0:.1f} s")
 
     # phase 5
     shapes = sorted({s for r in runs.values() for s in r[2]} | set(q_shapes))

@@ -4,17 +4,21 @@ snapshot-holding ``Compactor``:
     from repro_torch.api import Compactor
 
     comp = Compactor(detector="gfsp", backend="device")   # runs on CUDA
-    report = comp.run(store)
+    report = comp.run(store)           # rank classes, factorize the winners
+    comp.update(new_triples)           # absorb streaming inserts
 
 * detectors -- ``gfsp`` (greedy, Alg. 2), ``efsp`` (exhaustive, Alg. 1),
-  ``gspan`` (mined-pattern-space baseline).
+  ``gspan`` (mined-pattern-space baseline); ``register_detector`` adds
+  more.
 * execution backends -- ``host`` (numpy), ``device`` (batched torch on
-  ``device``, default ``"cuda"``).
+  ``device``, default ``"cuda"``); ``register_backend`` adds more.
 """
 from .backends import (BACKENDS, DeviceBackend, ExecutionBackend,  # noqa: F401
-                       HostBackend, get_backend)
+                       HostBackend, Registry, get_backend, register_backend)
 from .detectors import (DETECTORS, Detector, ExhaustiveDetector,  # noqa: F401
-                        GreedyDetector, GSpanBaseline, get_detector)
+                        GreedyDetector, GSpanBaseline, get_detector,
+                        register_detector)
 from .snapshot import (ClassPlan, CompactionPlan, CompactionPlanner,  # noqa: F401
-                       CompactionReport, GraphSnapshot)
+                       CompactionReport, DeleteReport, GraphSnapshot,
+                       RedetectReport, UpdateReport)
 from .compactor import Compactor  # noqa: F401

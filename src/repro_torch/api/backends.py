@@ -81,6 +81,10 @@ BACKENDS.register("host", HostBackend)
 BACKENDS.register("device", DeviceBackend)
 
 
+def register_backend(name: str, cls) -> None:
+    BACKENDS.register(name, cls)
+
+
 def get_backend(spec, **opts) -> ExecutionBackend:
     """Resolve a backend: a registered name (instantiated with ``opts``)
     or an already-constructed backend instance (returned as-is)."""

@@ -8,12 +8,15 @@
     report.graph                      # G' (original store untouched)
     comp.run(store.compressed(), stream=True)   # the bit-packed tier,
                                       # one class's decodes at a time
+    comp.update(new_triples)          # streaming inserts, no recomputation
+    comp.delete(entities=[...])       # deletes, payoff-sweep decompaction
+    comp.redetect([class_id])         # re-detect drifted classes only
 
 It is a thin facade: all graph state lives in an immutable
 :class:`~repro_torch.api.snapshot.GraphSnapshot` built by a
 :class:`~repro_torch.api.snapshot.CompactionPlanner`, and the facade
-commits by swapping its one reference.  ``update``, ``delete`` and
-``redetect`` are a later slice of the port.
+commits each transform by swapping its one reference, so a reader
+holding ``comp.snapshot`` never observes torn state.
 """
 from __future__ import annotations
 
@@ -25,7 +28,8 @@ from ..core.triples import TripleStore
 from .backends import ExecutionBackend
 from .detectors import Detector
 from .snapshot import (ClassPlan, CompactionPlan, CompactionPlanner,  # noqa: F401
-                       CompactionReport, GraphSnapshot)
+                       CompactionReport, DeleteReport, GraphSnapshot,
+                       RedetectReport, UpdateReport)
 
 
 class Compactor:
@@ -58,6 +62,14 @@ class Compactor:
     def backend(self) -> ExecutionBackend:
         return self.planner.backend
 
+    @property
+    def min_predicted_savings(self) -> int:
+        return self.planner.min_predicted_savings
+
+    @property
+    def surrogate_prefix(self) -> str:
+        return self.planner.surrogate_prefix
+
     def detect(self, store: TripleStore, class_id: int,
                props: Sequence[int] | None = None) -> FSPResult:
         """Run the configured detector on one class."""
@@ -87,7 +99,7 @@ class Compactor:
 
     @property
     def snapshot(self) -> GraphSnapshot:
-        """The committed immutable snapshot."""
+        """The committed immutable snapshot (fgraph + epoch)."""
         if self._snapshot is None:
             raise RuntimeError("Compactor.run()/execute() before .snapshot")
         return self._snapshot
@@ -100,3 +112,35 @@ class Compactor:
     @property
     def graph(self) -> TripleStore:
         return self.fgraph.store
+
+    # -- incremental path --------------------------------------------------
+    def update(self, new_triples) -> UpdateReport:
+        """Absorb streaming inserts into the factorized graph.
+
+        ``new_triples``: an (n, 3) id array (shared dictionary) or an
+        iterable of (subject, property, object) term triples.  New
+        entities of factorized classes whose object tuple matches an
+        existing star pattern are linked to its surrogate; novel tuples
+        mint fresh surrogates (continuing per-class ordinals); incomplete
+        molecules and unplanned classes stay raw.  No full recomputation.
+        The successor snapshot commits atomically at the end.
+        """
+        snap, report = self.planner.apply_update(self.snapshot, new_triples)
+        self._snapshot = snap
+        return report
+
+    def delete(self, triples=None, entities=None) -> DeleteReport:
+        """Remove semantic triples and/or entities from the factorized
+        graph transactionally (see :meth:`CompactionPlanner.apply_delete`);
+        the successor snapshot commits only if every step succeeds."""
+        snap, report = self.planner.apply_delete(
+            self.snapshot, triples=triples, entities=entities)
+        self._snapshot = snap
+        return report
+
+    def redetect(self, class_ids: Iterable[int]) -> RedetectReport:
+        """Re-detect and re-factorize only the given (drifted) classes;
+        see :meth:`CompactionPlanner.redetect`."""
+        snap, report = self.planner.redetect(self.snapshot, class_ids)
+        self._snapshot = snap
+        return report

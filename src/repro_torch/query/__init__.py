@@ -13,9 +13,11 @@ answers it on a ``FactorizedGraph``:
     eng.query(q, strategy="raw")             # index joins on expand()
     eng.query_batch(qs, backend="device")    # one launch pair per stack
 """
-from .batch import QueryEngine, match_molecules_batch  # noqa: F401
+from .batch import (QUERY_EXEC, QueryEngine, match_molecules_batch,  # noqa: F401
+                    reset_query_stats)
 from .star import (Bindings, StarQuery, eval_factorized, eval_raw,  # noqa: F401
                    match_molecules)
 
 __all__ = ["StarQuery", "Bindings", "QueryEngine", "eval_raw",
-           "eval_factorized", "match_molecules", "match_molecules_batch"]
+           "eval_factorized", "match_molecules", "match_molecules_batch",
+           "QUERY_EXEC", "reset_query_stats"]

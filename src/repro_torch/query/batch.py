@@ -19,7 +19,13 @@ per-candidate column mask, and a row signature.  This module reuses it:
 Signatures are 64-bit hashes, so hits are *verified exactly on host*
 before members are emitted -- a collision can cost a verification,
 never a wrong answer.  First launches of a bucket shape are recorded in
-``core.sweep.TRACE_COUNTS`` under the ``"query"`` kind.
+``core.sweep.TRACE_COUNTS`` under the ``"query"`` kind, and
+``QUERY_EXEC`` counts launched match chunks ("lowerings") against
+``query_batch`` calls ("batches").
+
+Device buffers are keyed by ``(epoch, class)``: an engine rebound to a
+new snapshot (``QueryEngine.rebind``) can never serve a stale molecule
+table, and buffers older than the previous epoch are evicted.
 """
 from __future__ import annotations
 
@@ -28,9 +34,24 @@ import torch
 
 from ..core.fgraph import FactorizedGraph, MoleculeTable
 from ..core.sweep import (MAX_SWEEP_CANDIDATES, _note_trace,
-                          bucket_candidates, bucket_cols, bucket_rows)
+                          bucket_candidates, bucket_cols, bucket_rows,
+                          register_stats_reset)
 from ..kernels import ops as kops
 from .star import Bindings, StarQuery, eval_factorized, eval_raw
+
+# launched-match accounting for the batched query path (mirrors
+# core.sweep.EXEC_STATS: one "batch" = one device query_batch call)
+QUERY_EXEC = {"lowerings": 0, "batches": 0}
+
+
+def reset_query_stats() -> None:
+    QUERY_EXEC["lowerings"] = 0
+    QUERY_EXEC["batches"] = 0
+
+
+# core.sweep.reset_trace_stats() is the one reset hook: it clears these
+# counters together with the sweep's
+register_stats_reset(reset_query_stats)
 
 
 def match_hits(mols: torch.Tensor, valid: torch.Tensor, masks: torch.Tensor,
@@ -74,6 +95,7 @@ def match_molecules_batch(buf: _TableBuffer, table: MoleculeTable,
                 j = table.col_of(p)
                 masks[qi, j] = 1
                 vals[qi, j] = o
+        QUERY_EXEC["lowerings"] += 1
         hits = match_hits(buf.dev, buf.valid,
                           torch.from_numpy(masks).to(device),
                           torch.from_numpy(vals).to(device)).cpu().numpy()
@@ -100,14 +122,44 @@ class QueryEngine:
     class's SP through the batched molecule match on ``device`` (default
     ``"cuda"``: the hand kernels; a host without CUDA raises there);
     everything else goes through the host path query by query.
+    ``epoch`` is the snapshot epoch of ``fgraph``; ``metrics`` (a
+    :class:`~repro_torch.online.metrics.MetricsHub`) receives the
+    ``query.buffer_evictions`` channel.
     """
 
     def __init__(self, fgraph: FactorizedGraph, raw_store=None, *,
-                 device="cuda") -> None:
+                 device="cuda", epoch: int = 0, metrics=None) -> None:
         self.fgraph = fgraph
         self._raw = raw_store
         self.device = device
-        self._bufs: dict[int, _TableBuffer] = {}   # class -> device table
+        self.epoch = int(epoch)
+        self.metrics = metrics
+        # device buffers are keyed (epoch, class) and bounded to the
+        # latest two epochs: a reader may still hold the previous
+        # snapshot, anything older is unreachable and evicts on rebind
+        self._bufs: dict[tuple[int, int], _TableBuffer] = {}
+        self.buffer_evictions = 0
+
+    def rebind(self, fgraph: FactorizedGraph, epoch: int) -> None:
+        """Swap in a new snapshot's fgraph.  Device buffers older than
+        the previous epoch are evicted (counted, and observed in the
+        ``query.buffer_evictions`` channel when a metrics hub is
+        attached); the raw-store cache drops with them.  Seen bucket
+        shapes are untouched, so the same shapes launch as warm after a
+        swap."""
+        if epoch == self.epoch and fgraph is self.fgraph:
+            return
+        keep = {int(epoch), self.epoch}
+        self.fgraph = fgraph
+        self.epoch = int(epoch)
+        self._raw = None
+        n_before = len(self._bufs)
+        self._bufs = {k: v for k, v in self._bufs.items() if k[0] in keep}
+        evicted = n_before - len(self._bufs)
+        if evicted:
+            self.buffer_evictions += evicted
+            if self.metrics is not None:
+                self.metrics.observe("query.buffer_evictions", evicted)
 
     @property
     def raw_store(self):
@@ -123,11 +175,12 @@ class QueryEngine:
         raise ValueError(f"unknown query strategy: {strategy!r}")
 
     def _buffer(self, class_id: int) -> _TableBuffer:
-        buf = self._bufs.get(class_id)
+        key = (self.epoch, class_id)
+        buf = self._bufs.get(key)
         if buf is None:
             buf = _TableBuffer(self.fgraph.tables[class_id],
                                kops.resolve_device(self.device))
-            self._bufs[class_id] = buf
+            self._bufs[key] = buf
         return buf
 
     def query_batch(self, queries, strategy: str = "factorized",
@@ -135,6 +188,7 @@ class QueryEngine:
         queries = list(queries)
         if strategy != "factorized" or backend != "device":
             return [self.query(q, strategy) for q in queries]
+        QUERY_EXEC["batches"] += 1
         out: list[Bindings | None] = [None] * len(queries)
         # group device-eligible queries per class: the whole group's
         # molecule match runs in one launch pair per chunk
