@@ -35,8 +35,8 @@ Phases, each an assertion (any failure exits non-zero):
    ``gspan``/host, ``efsp`` with ``min_support=2`` (the legacy path) and
    ``gfsp``/device, gspan's SP and edges equal to gfsp's on every class,
    their detect times and the gspan / gfsp ratio (the paper's baseline
-   comparison), and each kernel against its plain version at the bucket
-   shapes gfsp launched there;
+   comparison), and each kernel against its plain version on the inputs
+   of every shape launched there;
 4d. mutations of phase 3's G' on three twins -- phase 3's gfsp/device
    and gfsp/host snapshots, and phase 4b's gfsp/device G' re-hosted on
    the compressed tier -- through ``CompactionPlanner``: one id-level
@@ -50,8 +50,8 @@ Phases, each an assertion (any failure exits non-zero):
    and host twins), the digest equal to a ground truth computed without
    the code under test (the sorted, unique ``(original ∪ inserts) −
    deletes``), ``validate()``, both kernels launched by the device
-   redetect and each held against its plain version at every bucket
-   shape the device redetect launched;
+   redetect and each held against its plain version on the inputs of
+   every shape the phase launched;
 4e. the durable online service at full size:
    ``OnlineCompactionService.durable`` over phase 3's device snapshot
    (device backend, a checkpoint every 4 applies) ingests 8 term-level
@@ -65,8 +65,8 @@ Phases, each an assertion (any failure exits non-zero):
    digest equal the ground truth, a redetect run on the device (both
    kernels launched), none fail or be retried, phase 4's 64 queries on
    the final snapshot equal ``eval_raw`` on the ground-truth store, and
-   each kernel match its plain version at every sweep and query bucket
-   shape the phase launched; per batch the apply and redetect times, swaps,
+   each kernel match its plain version on the inputs of every sweep and
+   query shape the phase launched; per batch the apply and redetect times, swaps,
    and the checkpoint bytes, the recovery report, buffer evictions and
    the device memory peak are printed;
 4f. the crash-point sweep: the reference's recovery matrix
@@ -76,11 +76,38 @@ Phases, each an assertion (any failure exits non-zero):
    runs must agree in tables, G', redetect count and descents, every
    cell crash, recover, drain and end digest-identical to them, no
    service see a failed or retried redetect, and each kernel match its
-   plain version at every sweep shape the device runs launched;
-5. each kernel's launches on the main path, its time beside its plain
-   version's, its bound and a library yardstick, at the main path's
-   shapes (``sig_hash``'s bound counts the work it must do: the valid
-   rows' reads and hashes, and every signature written);
+   plain version on the inputs of every shape the phase launched;
+4g. the BGP engine and the graph-query server: (a) the reference's BGP
+   matrix (``benchmarks/run.py`` ``bgp_matrix``: 4,000 observations with
+   sensor stars, compacted by ``gfsp``/device, six workloads) through
+   ``query_bgp`` in five strategy x backend cells (and the filter
+   workload with post-hoc filters), every cell's binding-set digest,
+   rows and largest intermediate equal to ``BENCH_fsp.json``'s, cold and
+   warm ms printed, and ``calibration_report``'s fitted constants beside
+   the committed ones; (b) ``GraphQueryService(backend="device")`` over
+   phase 3's snapshot: one wave of 64 star requests (the four kinds of
+   ``serve_graph_queries``) and 24 BGP requests (lookups on both
+   classes, a ground arm with a variable arm, the Observation-Measurement
+   chain with a ``<`` or ``>=`` value filter, a Measurement star with an
+   ``==`` filter) run once per strategy (raw, factorized, auto): every
+   response ``ok``, no raw fallback and no shed, identical binding sets
+   across the waves, each equal to ``eval_raw`` / ``eval_bgp_reference``
+   on the original store, and every star answer also equal to a plain
+   scan of the original triples (``TripleScan``); the ``expand()`` seconds ``raw`` needs, the
+   wave ms, the planner's per-star mix and the device memory peak are
+   printed; (c) the ported ``serve_graph_queries``, ``serve_bgp_queries``
+   and ``serve_online`` on the device backend at their defaults, then
+   ``python -m repro_torch.launch.serve --online --durable DIR --chaos 0``
+   twice: killed by SIGKILL, then recovered with its gates passed.
+   ``sig_hash`` must launch in (a), (b) and (c), ``seg_count`` in (a)
+   and ``serve_online``, and each must match its plain version on the
+   inputs of every shape the phase launched it at;
+5. each kernel against its plain version on the inputs of every shape
+   phases 3-4 launched it at, then its launches on the main path, its
+   time beside its plain version's, its bound and a library yardstick,
+   on the widest gfsp sweep's inputs (``sig_hash``'s bound counts the
+   work it must do: the valid rows' reads and hashes, and every
+   signature written);
 6. kernel parity: ``flash_attention`` and ``linear_scan`` against their
    plain torch versions on the card over random inputs (bf16 and
    float32, ragged T and S, T < S, GQA groups 1/2/10, D 64/256, causal
@@ -108,12 +135,18 @@ Phases, each an assertion (any failure exits non-zero):
    flash kernel at the flat-prefill shape beside them.  The
    flat-prefill shape's numbers go into the record.
 
+Phases 3-4 (for phase 5) and each of 4c-4g record the inputs of
+``sig_hash`` and ``seg_count`` as they run (``KernelInputs``: a host
+copy of the first call of each shape) and hold the kernels on them
+afterwards, bit for bit; those launches come after the phase's counts
+are read and are not counted.
+
 Phase 7 also traces one flat prefill and four decode steps with
 ``torch.profiler`` and prints the device's busy and idle share and the
 kernels that took most of its time.
 
 The last two lines are the ``{"kernels": [...]}`` record -- five routes:
-``sig_hash``, ``seg_count`` (their launches summed over phases 3-4f),
+``sig_hash``, ``seg_count`` (their launches summed over phases 3-4g),
 ``flash_attention`` (bf16, tensor cores;
 launches of phase 7), ``flash_attention_f32`` (float32, CUDA cores;
 launches of phase 7b, its time at the flat-prefill shape) and
@@ -494,8 +527,7 @@ def build_queries(store, fg, n_queries: int):
 
 
 def star_queries(store, fg, totals):
-    """Phase 4; returns the engine (its uploaded molecule tables) and the
-    query bucket shapes it launched."""
+    """Phase 4; returns the queries and their answers."""
     import torch
     from repro_torch.core import sweep
     from repro_torch.query import QueryEngine, eval_raw
@@ -522,7 +554,7 @@ def star_queries(store, fg, totals):
         f"{secs:.2f} s, launches {launched}, bucket shapes {shapes}, "
         f"{rows} binding rows, all identical to eval_raw on the original "
         "store")
-    return eng, shapes, queries, got
+    return queries, got
 
 
 # ---------------------------------------------------------------------------
@@ -647,9 +679,8 @@ GSPAN_OBSERVATIONS = 800
 GSPAN_SEED = 42
 
 
-def gspan_baseline(dev, totals) -> None:
+def gspan_baseline(totals) -> None:
     """Phase 4c."""
-    import numpy as np
     import torch
     from repro_torch.api import Compactor
     from repro_torch.core import sweep
@@ -689,14 +720,11 @@ def gspan_baseline(dev, totals) -> None:
         assert (g.props, g.edges) == (f.props, f.edges), \
             f"class {cid}: gspan {g.props}/{g.edges} != " \
             f"gfsp {f.props}/{f.edges}"
-    # each kernel against its plain version at the sweep shapes gfsp
-    # launched here, on this graph's own parent buffers
-    sweep_parity([store], shapes, dev, np.random.default_rng(SEED))
     log(f"gspan baseline ({store.n_triples} triples, {GSPAN_OBSERVATIONS} "
         f"observations): gspan SP and edges equal gfsp/device on all "
         f"{len(classes)} classes; gspan / gfsp detect time "
-        f"{secs['gspan/host'] / secs['gfsp/device']:.1f}x; sweep shapes "
-        f"{shapes} bit-exact")
+        f"{secs['gspan/host'] / secs['gfsp/device']:.1f}x; gfsp sweep "
+        f"shapes {shapes}")
 
 
 # ---------------------------------------------------------------------------
@@ -835,12 +863,11 @@ def table_rows(fg) -> list:
             for c, t in sorted(fg.tables.items())]
 
 
-def mutations(store, runs, cfg, dev, totals) -> None:
+def mutations(store, runs, cfg, totals) -> None:
     """Phase 4d."""
     import numpy as np
     import torch
     from repro_torch.core import sweep
-    from repro_torch.core.triples import TripleStore
 
     rng = np.random.default_rng(SEED + 4)
     comps = {"device": runs[("gfsp", "device")][0],
@@ -922,16 +949,10 @@ def mutations(store, runs, cfg, dev, totals) -> None:
     digest = snaps["device"].digest()
     assert digest == gt, f"digest {digest} != ground truth {gt}"
     snaps["device"].fgraph.validate()
-    # each kernel against its plain version at the shapes the device
-    # redetect launched, on the parent buffers of the redetected classes
-    # (both classes decompacted: the base store is the semantic graph)
-    sweep_parity([TripleStore.from_ids(d, gt_rows, presorted=True)],
-                 shapes, dev, np.random.default_rng(SEED))
     log(f"mutations checks: reports (redetect plans included), tables and "
         f"G' equal on device and host (and compressed through the update); "
         f"digest {gt} == ground truth "
-        f"({gt_rows.shape[0]} triples); validate ok; sweep shapes {shapes} "
-        "bit-exact")
+        f"({gt_rows.shape[0]} triples); validate ok")
 
 
 def online_batches(store, n: int) -> list:
@@ -974,7 +995,7 @@ def process_death(svc) -> None:
         pass
 
 
-def durable_online(store, snap, backend, queries, dev, totals) -> None:
+def durable_online(store, snap, backend, queries, totals) -> None:
     """Phase 4e."""
     import tempfile
     import numpy as np
@@ -991,7 +1012,6 @@ def durable_online(store, snap, backend, queries, dev, totals) -> None:
     mem_start = device_peak_start()
     reset_launches()
     sweep.clear_compile_cache()          # every shape shows as new
-    qbufs = {}                           # query shape -> a table there
     try:
         t0 = time.perf_counter()
         svc = OnlineCompactionService.durable(
@@ -1014,7 +1034,6 @@ def durable_online(store, snap, backend, queries, dev, totals) -> None:
                             break
                         eng.rebind(svc.fgraph, svc.snapshot.epoch)
                         eng.query_batch(probe, backend="device")
-                        note_query_buffers(eng, qbufs)
                         red = rep.redetect
                         log(f"online batch {b} (seq {rep.seq}): apply "
                             f"{rep.latency_ms:.1f} ms, epoch "
@@ -1065,18 +1084,10 @@ def durable_online(store, snap, backend, queries, dev, totals) -> None:
         assert digest == gt, f"online digest {digest} != ground truth {gt}"
         gt_store = TripleStore.from_ids(d, gt_rows, presorted=True)
         got = eng.query_batch(queries, backend="device")
-        note_query_buffers(eng, qbufs)
         for q, g in zip(queries, got):
             assert g.same_as(eval_raw(gt_store, q)), \
                 f"query {q} on the online snapshot differs from eval_raw"
-        # each kernel against its plain version at every shape the phase
-        # launched: the redetect's sweeps on a parent of the store after
-        # (or, had a class left its bucket, before) the phase, the queries
-        # on the molecule tables they ran on
-        sweeps = sorted(s[1:] for s in sweep.TRACE_COUNTS if s[0] == "sweep")
-        rng = np.random.default_rng(SEED)
-        sweep_parity([gt_store, store], sweeps, dev, rng)
-        query_parity(qbufs, dev, rng)
+        shapes = sorted(sweep.TRACE_COUNTS)
         log(f"online: {len(seq)} batches in {secs:.2f} s; checkpoint "
             f"{m['checkpoint.bytes']['last']:.0f} B (count "
             f"{m['checkpoint.count']['count']}); redetects "
@@ -1085,14 +1096,13 @@ def durable_online(store, snap, backend, queries, dev, totals) -> None:
             f"evictions {eng.buffer_evictions}; launches {launched}; device "
             f"memory peak {peak} B over the phase's start; digest {digest} "
             f"== ground truth; {len(queries)} queries equal eval_raw on the "
-            f"ground-truth store; no redetect failed or was retried; sweep "
-            f"shapes {sweeps} and query shapes {sorted(s[1:] for s in qbufs)} "
-            "bit-exact")
+            f"ground-truth store; no redetect failed or was retried; bucket "
+            f"shapes {shapes}")
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
 
-def crash_sweep(backend, dev, totals) -> None:
+def crash_sweep(backend, totals) -> None:
     """Phase 4f."""
     import tempfile
     import numpy as np
@@ -1183,128 +1193,604 @@ def crash_sweep(backend, dev, totals) -> None:
     for name, n in launched.items():
         assert n > 0, f"{name} was not launched by the crash sweep"
         totals[name] += n
-    # each kernel against its plain version at every sweep shape the
-    # device runs launched (the one class that grows crosses a row
-    # bucket: its parent before the batches or after them)
     sweeps = sorted(s[1:] for s in sweep.TRACE_COUNTS if s[0] == "sweep")
-    sweep_parity([build_store(), end_store], sweeps, dev,
-                 np.random.default_rng(SEED))
     log(f"crash sweep: {cells} cells crashed, recovered and ended "
         f"digest-identical ({want['device']}) to the uninterrupted run; "
         f"uninterrupted host and device runs equal in tables, G' and "
         f"{refs['device'][2]} redetects; no redetect failed or was retried; "
-        f"launches {launched}; sweep shapes {sweeps} bit-exact")
+        f"launches {launched}; sweep shapes {sweeps}")
+
+
+# ---------------------------------------------------------------------------
+# phase 4g: the BGP engine and the graph-query server
+# ---------------------------------------------------------------------------
+
+# 4g(a): the graph of the reference's BGP matrix (benchmarks/run.py
+# bgp_matrix, fast), whose binding-set digests BENCH_fsp.json records
+BGP_MATRIX_OBSERVATIONS = 4_000
+BGP_MATRIX_SEED = 42
+BGP_WORKLOADS = ("lookup", "var_arm", "filter", "2star", "3star", "mixed")
+# (label, strategy, backend) of each cell, the labels BENCH_fsp.json uses;
+# the filter workload also runs with its filters applied after the joins
+BGP_CELLS = (("planner", "auto", "host"), ("raw", "raw", "host"),
+             ("factorized", "factorized", "host"),
+             ("factorized", "factorized", "device"),
+             ("planner", "auto", "device"))
+# 4g(b): one wave of requests over phase 3's snapshot, run once per
+# strategy; the BGP requests cycle through these shapes
+GRAPH_STAR_REQUESTS = 64
+GRAPH_BGP_REQUESTS = 24
+GRAPH_BGP_SHAPES = ("obs_lookup", "meas_lookup", "ground_var", "chain_lt",
+                    "meas_eq", "chain_ge")
+# 4g(c): the entry points at their defaults, and the kill-and-restart pair
+ENTRY_STAR_REQUESTS = 64
+ENTRY_BGP_REQUESTS = 24
+ENTRY_ONLINE_BATCHES = 20
+CHAOS_SEED = 0
+
+
+def bgp_workloads(fg, d) -> dict:
+    """The reference's BGP matrix workloads (``benchmarks/run.py``
+    ``bgp_matrix``), built the same way on ``fg``: molecule ``lookup``s,
+    ``var_arm`` scans, the off-SP ``residual`` probes (calibration only),
+    ``2star`` joins, ``3star`` chains, the chains with pushed-down value
+    ``filter``s, and the ``mixed`` bag."""
+    from repro_torch.data.synthetic import (MEASUREMENT, OBSERVATION,
+                                            P_MODEL, P_PROCEDURE, P_RESULT,
+                                            P_VALUE, SENSOR)
+    from repro_torch.query import BGPQuery, Filter, StarPattern
+
+    obs, meas, sen = (d.lookup(t) for t in (OBSERVATION, MEASUREMENT,
+                                            SENSOR))
+    p_proc, p_model, p_res, p_val = (
+        d.lookup(t) for t in (P_PROCEDURE, P_MODEL, P_RESULT, P_VALUE))
+    tables = sorted(fg.tables.items())
+    lookups = [
+        BGPQuery(stars=(StarPattern(
+            "?s", tuple((int(p), int(o)) for p, o in zip(t.props, row)),
+            class_id=cid),))
+        for cid, t in tables for row in t.objects[:48]]
+    var_arm = [
+        BGPQuery(stars=(StarPattern(
+            "?s", ((int(t.props[0]), int(row[0])),
+                   (int(t.props[-1]), "?v")), class_id=cid),))
+        for cid, t in tables for row in t.objects[:16]]
+    residual = [BGPQuery(stars=(StarPattern(
+        f"?o{i}", ((p_res, f"?m{i}"),), class_id=obs),))
+        for i in range(3)]
+    joins2 = [
+        BGPQuery(stars=(
+            StarPattern("?o", ((p_proc, "?s"),), class_id=obs),
+            StarPattern("?s", ((p_model, d.lookup(f"model/{m}")),),
+                        class_id=sen)))
+        for m in range(3)]
+    chains3 = [
+        BGPQuery(stars=(
+            StarPattern("?o", ((p_proc, "?s"), (p_res, "?m")),
+                        class_id=obs),
+            StarPattern("?s", ((p_model, d.lookup(f"model/{m}")),),
+                        class_id=sen),
+            StarPattern("?m", ((p_val, "?v"),), class_id=meas)))
+        for m in range(3)]
+    filtered = [
+        BGPQuery(stars=q.stars,
+                 filters=(Filter("?v", op, d.lookup(f"val/{k}")),))
+        for q in chains3 for op in ("<", ">=") for k in (2, 6)]
+    mixed = (lookups[:24] + var_arm[:8] + residual + joins2 * 2
+             + filtered[:2])
+    return {"lookup": lookups, "var_arm": var_arm, "filter": filtered,
+            "2star": joins2, "3star": chains3, "mixed": mixed,
+            "residual": residual}
+
+
+def bgp_digest(results) -> str:
+    """The reference's binding-set digest of a workload's answers: sha1
+    over each answer's ``canonical()`` bytes, in query order."""
+    h = hashlib.sha1()
+    for b in results:
+        h.update(b.canonical().tobytes())
+    return h.hexdigest()[:16]
+
+
+class KernelInputs:
+    """Records what ``sig_hash`` and ``seg_count`` are launched on while
+    it is entered: it wraps ``ops.row_signature`` and
+    ``ops.seg_boundaries`` (what every sweep and molecule match calls)
+    and keeps a host copy of the inputs of the first call of each
+    distinct shape (on the host, so a phase's device memory peak stays
+    its own); the wrapped call runs unchanged and counts its launch as
+    before.  :meth:`check` then holds each kernel against its plain
+    version on every recorded input."""
+
+    def __init__(self):
+        from repro_torch.kernels import ops
+        self.ops = ops
+        self.orig = {"row_signature": ops.row_signature,
+                     "seg_boundaries": ops.seg_boundaries}
+        self.sig: dict = {}
+        self.seg: dict = {}
+
+    def _row_signature(self, mat, valid=None, col_masks=None):
+        key = tuple(None if t is None else tuple(t.shape)
+                    for t in (mat, valid, col_masks))
+        if key not in self.sig:
+            self.sig[key] = (mat.to("cpu", copy=True), {
+                k: t.to("cpu", copy=True) for k, t in (
+                    ("valid", valid), ("col_masks", col_masks))
+                if t is not None})
+        return self.orig["row_signature"](mat, valid=valid,
+                                          col_masks=col_masks)
+
+    def _seg_boundaries(self, sig_sorted):
+        key = tuple(sig_sorted.shape)
+        if key not in self.seg:
+            self.seg[key] = sig_sorted.to("cpu", copy=True)
+        return self.orig["seg_boundaries"](sig_sorted)
+
+    def __enter__(self):
+        self.ops.row_signature = self._row_signature
+        self.ops.seg_boundaries = self._seg_boundaries
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.row_signature = self.orig["row_signature"]
+        self.ops.seg_boundaries = self.orig["seg_boundaries"]
+
+    @staticmethod
+    def _on(dev, mat, kw):
+        return mat.to(dev), {k: t.to(dev) for k, t in kw.items()}
+
+    def check(self, dev) -> str:
+        """Each kernel against its plain version on every recorded input
+        (after the phase's counts were read); returns the shapes."""
+        import torch
+        from repro_torch.kernels.seg_count import (seg_boundaries,
+                                                   seg_boundaries_plain)
+        assert self.sig, "no sig_hash input was recorded"
+        for key, (mat, kw) in sorted(self.sig.items(), key=str):
+            parity_case(*self._on(dev, mat, kw), f"sig_hash input {key}",
+                        seg=False)
+        for key, srt in sorted(self.seg.items()):
+            srt = srt.to(dev)
+            (b, c), (pb, pc) = seg_boundaries(srt), seg_boundaries_plain(srt)
+            torch.cuda.synchronize()
+            for got, want, part in ((b, pb, "bounds"), (c, pc, "counts")):
+                e = max_abs_diff(got, want)
+                assert e == 0, \
+                    f"seg_count disagrees with its plain version: {key} {part}"
+                ERR["seg_count"] = max(ERR["seg_count"], e)
+                CASES["seg_count"] += 1
+        return (f"sig_hash at {sorted(self.sig, key=str)}, seg_count at "
+                f"{sorted(self.seg)}")
+
+    def widest_sweep(self, dev):
+        """The recorded inputs of the widest gfsp sweep -- a parent with
+        its drop-one stack, as many masks as columns -- on ``dev``."""
+        sweeps = [(mat, kw) for mat, kw in self.sig.values()
+                  if mat.dim() == 2 and "col_masks" in kw
+                  and kw["col_masks"].shape[0] == mat.shape[1]]
+        assert sweeps, "no gfsp sweep on the path"
+        return self._on(dev, *max(sweeps, key=lambda r: r[0].numel()))
+
+
+def with_parity(what: str, dev, fn, *args):
+    """Runs the phase ``fn(*args)`` with the kernels' inputs recorded,
+    then holds each kernel against its plain version on them."""
+    with KernelInputs() as rec:
+        out = fn(*args)
+    log(f"{what} parity: {rec.check(dev)}, all bit-exact")
+    return out
+
+
+def add_launches(totals, what: str, need=("sig_hash",)) -> dict:
+    """Reads and resets the launch counts, adds them to ``totals``, and
+    fails if a kernel of ``need`` was not launched."""
+    launched = read_launches()
+    for name, n in launched.items():
+        totals[name] += n
+    for name in need:
+        assert launched[name] > 0, f"{what} did not launch {name}"
+    reset_launches()
+    return launched
+
+
+def bgp_matrix(totals) -> None:
+    """Phase 4g (a): the reference's BGP matrix on the port, each cell's
+    digest against ``BENCH_fsp.json``."""
+    import torch
+    from repro_torch.api import Compactor
+    from repro_torch.data.synthetic import SensorGraphSpec, generate
+    from repro_torch.query import QueryEngine
+    from repro_torch.query.bgp import calibration_report
+
+    bench = json.loads((ROOT / "BENCH_fsp.json").read_text())["bgp"]
+    store = generate(SensorGraphSpec(
+        n_observations=BGP_MATRIX_OBSERVATIONS, seed=BGP_MATRIX_SEED,
+        include_sensor_metadata=True))
+    assert store.n_triples == bench["graph"]["n_triples"], store.n_triples
+    reset_launches()
+    comp = Compactor("gfsp", "device")
+    comp.run(store)
+    add_launches(totals, "the bgp matrix's compaction",
+                 ("sig_hash", "seg_count"))
+    eng = QueryEngine(comp.fgraph)
+    eng.raw_store             # the raw baseline, built outside the timers
+    wl = bgp_workloads(comp.fgraph, store.dict)
+
+    def run_once(queries, strategy, backend, posthoc):
+        out, mi = [], 0
+        for q in queries:
+            b, st = eng.query_bgp(q, strategy=strategy, backend=backend,
+                                  posthoc_filters=posthoc,
+                                  return_stats=True)
+            out.append(b)
+            mi = max(mi, st["max_intermediate"])
+        torch.cuda.synchronize()
+        return out, mi
+
+    for name in BGP_WORKLOADS:
+        want = {(c["strategy"], c["backend"]): c
+                for c in bench["workloads"][name]}
+        digests = {c["digest"] for c in want.values()}
+        assert len(digests) == 1, (name, digests)
+        cells = BGP_CELLS + ((("posthoc", "factorized", "host"),)
+                             if name == "filter" else ())
+        for label, strategy, backend in cells:
+            posthoc = label == "posthoc"
+            t0 = time.perf_counter()
+            res, mi = run_once(wl[name], strategy, backend, posthoc)
+            cold = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            res, mi = run_once(wl[name], strategy, backend, posthoc)
+            warm = (time.perf_counter() - t0) * 1e3
+            digest = bgp_digest(res)
+            n_rows = sum(b.n_rows for b in res)
+            ref = want.get((label, backend), want[(label, "host")])
+            log(f"bgp matrix {name:8s} {label}x{backend}: cold {cold:.3f} "
+                f"ms, warm {warm:.3f} ms, rows {n_rows}, max intermediate "
+                f"{mi}, digest {digest}")
+            assert digest in digests, \
+                f"bgp {name} {label}x{backend}: digest {digest} != {digests}"
+            assert (n_rows, mi) == (ref["n_rows"], ref["max_intermediate"]), \
+                (name, label, backend, n_rows, mi)
+    launched = add_launches(totals, "the bgp matrix's device cells")
+    cal = calibration_report(eng, {k: wl[k] for k in (
+        "lookup", "var_arm", "filter", "2star", "3star", "residual")})
+    log(f"bgp matrix: {len(BGP_WORKLOADS)} workloads x {len(BGP_CELLS)} "
+        f"cells (+ posthoc filter), every digest equal to BENCH_fsp.json's; "
+        f"query launches {launched}; calibration over "
+        f"{cal['n_samples']} samples, rel_l1 {cal['rel_l1_error']}: fitted "
+        f"{cal['fitted']} (committed {cal['committed']}, kept)")
+
+
+def graph_star_requests(fg, d, n: int, rng) -> list:
+    """``serve_graph_queries``'s four kinds at the term level: a variable
+    scan over one arm (the first request of each class: it answers every
+    member, 1.11M rows a class at 10M), then a full molecule lookup, a
+    ground arm with a variable arm and a miss (an object of another
+    column) in turn."""
+    from repro_torch.serving import GraphQueryRequest
+    term = d.term
+    classes = sorted(fg.tables.items())
+    out = []
+    for i in range(n):
+        cid, t = classes[i % len(classes)]
+        row = t.objects[int(rng.integers(0, t.n_molecules))]
+        kind = 3 if i < len(classes) else (i // len(classes)) % 3
+        if kind == 0:
+            arms = tuple((term(p), term(int(o)))
+                         for p, o in zip(t.props, row))
+        elif kind == 1:
+            arms = ((term(t.props[0]), term(int(row[0]))),
+                    (term(t.props[-1]), None))
+        elif kind == 2:
+            arms = ((term(t.props[0]), term(int(row[-1]))),)
+        else:
+            arms = ((term(t.props[0]), None),)
+        out.append(GraphQueryRequest(rid=i, arms=arms, class_term=term(cid)))
+    return out
+
+
+def graph_bgp_requests(fg, d, n: int, rid0: int, rng) -> list:
+    """BGP requests on the 10M sensor schema, cycling through
+    ``GRAPH_BGP_SHAPES``: ground-SP lookups on both classes, a ground arm
+    with a variable arm, the Observation-Measurement chain over
+    ``observationResult`` with a ``<`` or ``>=`` value filter (the schema
+    has no sensor stars to join), and a Measurement star with an ``==``
+    filter.  The oracle's hash join walks every Measurement for each
+    distinct chain or filter query (seconds apiece at 10M), so those
+    repeat: one sensor for the chains, one value for the filter."""
+    from repro_torch.data.synthetic import (MEASUREMENT, OBSERVATION,
+                                            P_PROCEDURE, P_RESULT, P_TIME,
+                                            P_VALUE)
+    from repro_torch.serving import BGPQueryRequest
+    term = d.term
+    tabs = {OBSERVATION: fg.tables[d.lookup(OBSERVATION)],
+            MEASUREMENT: fg.tables[d.lookup(MEASUREMENT)]}
+    obs = tabs[OBSERVATION]
+    proc = obs.objects[rng.integers(0, obs.n_molecules, 2),
+                       obs.col_of(d.lookup(P_PROCEDURE))]
+    sensors = [term(int(s)) for s in proc]
+    out = []
+    for i in range(n):
+        shape = GRAPH_BGP_SHAPES[i % len(GRAPH_BGP_SHAPES)]
+        sensor = sensors[(i // len(GRAPH_BGP_SHAPES)) % 2]
+        filters = ()
+        if shape in ("obs_lookup", "meas_lookup"):
+            cls = OBSERVATION if shape == "obs_lookup" else MEASUREMENT
+            t = tabs[cls]
+            row = t.objects[int(rng.integers(0, t.n_molecules))]
+            stars = (("?s", tuple((term(p), term(int(o)))
+                                  for p, o in zip(t.props, row)), cls),)
+        elif shape == "ground_var":
+            stars = (("?o", ((P_PROCEDURE, sensor), (P_TIME, "?t")),
+                      OBSERVATION),)
+        elif shape in ("chain_lt", "chain_ge"):
+            stars = (("?o", ((P_PROCEDURE, sensors[0]), (P_RESULT, "?m")),
+                      OBSERVATION),
+                     ("?m", ((P_VALUE, "?v"),), MEASUREMENT))
+            filters = (("?v", "<", "val/6") if shape == "chain_lt"
+                       else ("?v", ">=", "val/2"),)
+        else:
+            filters = (("?v", "==", "val/3"),)
+            stars = (("?m", ((P_VALUE, "?v"),), MEASUREMENT),)
+        out.append(BGPQueryRequest(rid=rid0 + i, stars=stars,
+                                   filters=filters))
+    return out
+
+
+def unique_rows(rows):
+    """The sorted, unique rows of a 2-D integer array (a lexsort and a
+    comparison of neighbours: ``np.unique(axis=0)`` sorts a void view,
+    several times slower on a million rows)."""
+    import numpy as np
+    rows = rows[np.lexsort(rows.T[::-1])]
+    keep = np.ones(rows.shape[0], bool)
+    keep[1:] = np.any(rows[1:] != rows[:-1], axis=1)
+    return rows[keep]
+
+
+def response_rows(resp, d):
+    """A response's bindings as canonical id rows (sorted, unique)."""
+    import itertools
+    import numpy as np
+    if resp.n_rows == 0:
+        return np.empty((0, 0), np.int64)
+    if hasattr(resp, "subjects"):
+        rows = ((s,) + o for s, o in zip(resp.subjects, resp.var_objects))
+        width = 1 + len(resp.var_props)
+    else:
+        rows, width = resp.rows, len(resp.variables)
+    flat = itertools.chain.from_iterable(rows)
+    ids = np.fromiter(map(d.lookup, flat), np.int64,
+                      count=resp.n_rows * width).reshape(-1, width)
+    return unique_rows(ids)
+
+
+def same_rows(a, b) -> bool:
+    """Two canonical binding arrays hold the same rows (any empty two
+    agree, whatever their width)."""
+    if a.shape[0] == 0 or b.shape[0] == 0:
+        return a.shape[0] == b.shape[0]
+    return a.shape == b.shape and a.tobytes() == b.tobytes()
+
+
+class TripleScan:
+    """Star queries answered by a plain scan of a store's triples, apart
+    from the query package: the rows grouped by predicate once, each
+    predicate's rows sorted by (subject, object) once, then per arm a
+    mask over them, subject sets intersected, and each variable arm
+    joined on by a sorted search."""
+
+    def __init__(self, store):
+        import numpy as np
+        spo = store.spo.astype(np.int64)
+        self.spo = spo[np.argsort(spo[:, 1], kind="stable")]
+        self.type_id = store.TYPE
+        self.blocks: dict = {}
+        self.classes: dict = {}
+
+    def _pred(self, p: int):
+        """The (subject, object) pairs of predicate ``p``, sorted."""
+        import numpy as np
+        if p not in self.blocks:
+            lo, hi = np.searchsorted(self.spo[:, 1], [p, p + 1])
+            s, o = self.spo[lo:hi, 0], self.spo[lo:hi, 2]
+            order = np.lexsort((o, s))
+            self.blocks[p] = (s[order], o[order])
+        return self.blocks[p]
+
+    def star(self, q):
+        """Sorted-unique rows (subject, then the variable arms' objects in
+        arm order) of the star query ``q``, which has a class."""
+        import numpy as np
+        if q.class_id not in self.classes:
+            s, o = self._pred(self.type_id)
+            self.classes[q.class_id] = np.unique(s[o == q.class_id])
+        subs = self.classes[q.class_id]
+        for p, obj in q.arms:
+            if obj is not None:
+                s, o = self._pred(p)
+                hit = s[o == obj]            # sorted, unique
+                at = np.searchsorted(subs, hit).clip(0, len(subs) - 1)
+                subs = hit[subs[at] == hit] if len(subs) else subs
+        rows = subs[:, None]
+        for p, obj in q.arms:
+            if obj is None:
+                s, o = self._pred(p)
+                lo = np.searchsorted(s, rows[:, 0], "left")
+                n = np.searchsorted(s, rows[:, 0], "right") - lo
+                starts = np.repeat(lo, n)
+                offs = np.arange(n.sum()) - np.repeat(np.cumsum(n) - n, n)
+                rows = np.column_stack([np.repeat(rows, n, axis=0),
+                                        o[starts + offs]])
+        return unique_rows(rows)
+
+
+def graph_server(store, snap, totals) -> None:
+    """Phase 4g (b): ``GraphQueryService`` at 10M, three waves."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.query import eval_bgp_reference, eval_raw
+    from repro_torch.serving import GraphQueryService
+    from repro_torch.serving.engine import _compile_bgp_query, _compile_star
+
+    d = snap.store.dict
+    rng = np.random.default_rng(SEED)
+    stars = graph_star_requests(snap.fgraph, d, GRAPH_STAR_REQUESTS, rng)
+    bgps = graph_bgp_requests(snap.fgraph, d, GRAPH_BGP_REQUESTS,
+                              GRAPH_STAR_REQUESTS, rng)
+    mem_start = device_peak_start()
+    svc = GraphQueryService(snap, backend="device")
+    t0 = time.perf_counter()
+    raw = svc.engine.raw_store
+    t_expand = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    raw.index
+    t_index = time.perf_counter() - t0
+    log(f"graph server: expand() of the {snap.n_triples}-triple G' for the "
+        f"raw strategy {t_expand:.2f} s ({raw.n_triples} triples), its "
+        f"index {t_index:.2f} s (once, before the waves)")
+    waves, launches = {}, {}
+    for wave in ("raw", "factorized", "auto"):
+        star_strategy = "raw" if wave == "raw" else "factorized"
+        for r in stars:
+            assert svc.submit(dataclasses.replace(r, strategy=star_strategy))
+        for r in bgps:
+            assert svc.submit(dataclasses.replace(r, strategy=wave))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        waves[wave] = svc.run()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches[wave] = add_launches(
+            totals, f"the {wave} wave", () if wave == "raw" else
+            ("sig_hash",))
+        rows = sum(r.n_rows for r in waves[wave].values())
+        log(f"graph server wave {wave}: {len(stars)} star + {len(bgps)} "
+            f"BGP requests in {ms:.1f} ms, {rows} binding rows, launches "
+            f"{launches[wave]}")
+    peak = device_peak(mem_start)
+    m = svc.metrics.summary()
+    for ch in ("wave.raw_fallback", "admission.shed", "wave.deadline_shed"):
+        assert m[ch]["count"] == 0, f"graph server: {ch} {m[ch]}"
+    mix = {"raw": 0, "factorized": 0}
+    ref_cache: dict = {}
+    star_rows: dict = {}          # the star requests' answers, as id rows
+    t0 = time.perf_counter()
+    for req in stars + bgps:
+        got = [waves[w][req.rid] for w in waves]
+        assert all(r.status == "ok" for r in got), \
+            (req.rid, [r.status for r in got])
+        rows = [response_rows(r, d) for r in got]
+        assert all(same_rows(r, rows[0]) for r in rows), \
+            f"request {req.rid}: the waves' binding sets differ"
+        if hasattr(req, "arms"):
+            q = _compile_star(req, d)
+            oracle = (lambda q=q: eval_raw(store, q))
+            star_rows[req.rid] = (q, rows[0])
+        else:
+            q = _compile_bgp_query(req, d)
+            oracle = (lambda q=q: eval_bgp_reference(store, q))
+            for s in got[-1].strategies:
+                mix[s] += 1
+        if q is None:
+            assert rows[0].shape[0] == 0, req.rid
+            continue
+        if q not in ref_cache:
+            ref_cache[q] = oracle().canonical()
+        want = ref_cache[q]
+        assert same_rows(rows[0], want), \
+            f"request {req.rid} differs from its oracle on the original store"
+    log(f"graph server: every response ok, no raw fallback or shed; the "
+        f"three waves' binding sets identical and equal to eval_raw / "
+        f"eval_bgp_reference on the original store ({len(ref_cache)} "
+        f"distinct queries, checked in {time.perf_counter() - t0:.1f} s); "
+        f"planner per-star mix {mix}; device memory peak {peak} B over the "
+        "phase's start")
+    # the star answers once more, against a scan of the original triples
+    # that shares no code with the query package
+    t0 = time.perf_counter()
+    scan = TripleScan(store)
+    for rid, (q, rows) in star_rows.items():
+        if q is None:
+            continue
+        assert waves["factorized"][rid].var_props == \
+            tuple(d.term(p) for p in q.var_props), rid
+        assert same_rows(rows, scan.star(q)), \
+            f"star request {rid} differs from a scan of the triples"
+    log(f"graph server: {len(star_rows)} star answers equal a plain scan of "
+        f"the original triples ({time.perf_counter() - t0:.1f} s)")
+
+
+def graph_entry_points(totals) -> None:
+    """Phase 4g (c): the ported entry points on the device backend, and
+    ``--online --durable DIR --chaos`` killed and restarted."""
+    import os
+    import signal
+    import tempfile
+    from repro_torch.kernels import build
+    from repro_torch.launch import serve
+
+    for name, call, need in (
+            ("serve_graph_queries", lambda: serve.serve_graph_queries(
+                ENTRY_STAR_REQUESTS, backend="device"), ("sig_hash",)),
+            ("serve_bgp_queries", lambda: serve.serve_bgp_queries(
+                ENTRY_BGP_REQUESTS, backend="device"), ("sig_hash",)),
+            ("serve_online", lambda: serve.serve_online(
+                ENTRY_ONLINE_BATCHES, backend="device"),
+             ("sig_hash", "seg_count"))):
+        t0 = time.perf_counter()
+        res = call()
+        secs = time.perf_counter() - t0
+        launched = add_launches(totals, name, need)
+        brief = {k: v for k, v in res.items()
+                 if k not in ("rows", "metrics")}
+        log(f"entry point {name}: {secs:.2f} s, launches {launched}, {brief}")
+    # the subprocesses load this run's kernel library from the default
+    # build directory instead of compiling it again
+    lib = build.build()
+    dst = ROOT / "build" / "repro_torch_kernels"
+    dst.mkdir(parents=True, exist_ok=True)
+    shutil.copy2(lib, dst / lib.name)
+    root = tempfile.mkdtemp(prefix="chip_smoke_chaos_")
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--online",
+           "--durable", root, "--chaos", str(CHAOS_SEED)]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    try:
+        for attempt, want in (("first", -signal.SIGKILL), ("restart", 0)):
+            t0 = time.perf_counter()
+            res = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                                 text=True, timeout=300)
+            secs = time.perf_counter() - t0
+            last = (res.stdout.strip().splitlines() or [""])[-1]
+            log(f"--online --durable --chaos {CHAOS_SEED}, {attempt} run: "
+                f"exit {res.returncode} in {secs:.1f} s; {last}")
+            assert res.returncode == want, \
+                f"{attempt} run exited {res.returncode}:\n{res.stderr[-2000:]}"
+        assert "online soak (recovery)" in last and "gates PASS" in last, last
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def bgp_and_graph_server(store, snap, totals) -> None:
+    """Phase 4g: (a), (b) and (c)."""
+    reset_launches()
+    t0 = time.perf_counter()
+    bgp_matrix(totals)
+    log(f"bgp matrix: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    graph_server(store, snap, totals)
+    log(f"graph server: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    graph_entry_points(totals)
+    log(f"graph entry points: {time.perf_counter() - t0:.1f} s")
 
 
 # ---------------------------------------------------------------------------
 # phase 5: parity and timing at the main path's shapes
 # ---------------------------------------------------------------------------
-
-def main_path_parity(store, eng, shapes, dev):
-    """Each kernel against its plain version at every bucket shape the
-    main path launched, on the main path's own data: each class's real
-    parent buffer with its drop-one stack (gfsp) or seeded 0/1 masks
-    over its columns (the wider efsp levels), and each uploaded molecule
-    table with masks and values of its own molecules (queries, which
-    launch ``sig_hash`` only).  Returns the inputs of the widest gfsp
-    sweep, the shape the timings use."""
-    import numpy as np
-
-    rng = np.random.default_rng(SEED)
-    sweeps = [s[1:] for s in shapes if s[0] == "sweep"]
-    timed = sweep_parity([store], sweeps, dev, rng)
-    queries = {s: query_buffer(eng, s) for s in shapes if s[0] == "query"}
-    query_parity(queries, dev, rng)
-    log(f"main-path parity: sweep shapes {sweeps}, query shapes "
-        f"{[s[1:] for s in queries]}; totals sig_hash "
-        f"{CASES['sig_hash']} cases, seg_count {CASES['seg_count']} cases, "
-        "all bit-exact")
-    return timed
-
-
-def query_buffer(eng, shape):
-    """An uploaded molecule table of ``eng`` in the ``("query", m_b, k_b,
-    q_b)`` bucket."""
-    return next(b for b in eng._bufs.values()
-                if (b.m_bucket, b.k_bucket) == tuple(shape[1:3]))
-
-
-def note_query_buffers(eng, keep: dict) -> None:
-    """Keeps, for each query bucket shape launched since the last
-    ``clear_compile_cache`` and not yet in ``keep``, a molecule table of
-    ``eng`` in that bucket -- a reference, so a later ``rebind`` that
-    evicts it from the engine leaves it for :func:`query_parity`."""
-    from repro_torch.core import sweep
-    for s in sweep.TRACE_COUNTS:
-        if s[0] == "query" and s not in keep:
-            keep[s] = query_buffer(eng, s)
-
-
-def query_parity(bufs: dict, dev, rng) -> None:
-    """``sig_hash`` against its plain version at each ``("query", m_b,
-    k_b, q_b)`` shape of ``bufs``, on that molecule table with masks and
-    values of its own molecules."""
-    import numpy as np
-    import torch
-
-    for (_, m_b, k_b, q_b), buf in sorted(bufs.items()):
-        masks = np.zeros((q_b, k_b), np.int32)
-        masks[:, :buf.k] = rng.integers(0, 2, (q_b, buf.k))
-        vals = np.zeros((q_b, k_b), np.int32)
-        vals[:, :buf.k] = buf.dev[torch.from_numpy(
-            rng.integers(0, buf.m, q_b)), :buf.k].cpu().numpy()
-        masks = torch.from_numpy(masks).to(dev)
-        vals = torch.from_numpy(vals).to(dev)
-        parity_case(buf.dev, {"valid": buf.valid, "col_masks": masks},
-                    f"query table ({m_b}, {k_b}) x {q_b}", seg=False)
-        parity_case((vals * masks)[:, None, :], {},
-                    f"query tuples ({q_b}, 1, {k_b})", seg=False)
-
-
-def sweep_parity(stores, sweeps, dev, rng):
-    """Both kernels against their plain versions at each ``(n_b, k_b,
-    c_b)`` sweep shape, on the parent buffer of a class in that bucket,
-    taken from the first of ``stores`` that has one (a phase whose
-    classes grow passes the store from before and after); returns the
-    inputs of the widest gfsp sweep."""
-    import numpy as np
-    import torch
-    from repro_torch.core.sweep import (DeviceSweepWorkspace, bucket_cols,
-                                        bucket_rows)
-
-    buckets = {(n_b, k_b) for n_b, k_b, _ in sweeps}
-    parents = {}
-    for store in stores:
-        if set(parents) == buckets:
-            break
-        for cid in (int(c) for c in store.classes()):
-            stats = store.class_stats(cid)
-            props = tuple(int(p) for p in stats.properties)
-            ws = DeviceSweepWorkspace(store, cid, props, len(props),
-                                      stats.n_instances, device=dev)
-            key = (bucket_rows(ws.matrix.shape[0]), bucket_cols(len(props)))
-            if props and key in buckets and key not in parents:
-                ws._ensure_uploaded()
-                parents[key] = ws
-    assert set(parents) == buckets, (sorted(buckets), sorted(parents))
-
-    timed = None
-    for n_b, k_b, c_b in sweeps:
-        ws = parents[(n_b, k_b)]
-        k = ws.matrix.shape[1]
-        stack = np.zeros((c_b, k_b), np.int32)
-        if c_b == k_b:                   # the gfsp drop-one sweep
-            stack[:, :k] = ws._drop_one_stack(c_b)
-        else:                            # an efsp lattice level
-            stack[:, :k] = rng.integers(0, 2, (c_b, k))
-        kw = {"valid": ws._valid,
-              "col_masks": torch.from_numpy(stack).to(dev)}
-        parity_case(ws._dev, kw, f"sweep ({n_b}, {k_b}) x {c_b}")
-        if c_b == k_b and (timed is None or n_b * k_b > timed[0].numel()):
-            timed = (ws._dev, kw)
-    assert timed is not None, "no gfsp sweep on the path"
-    return timed
-
 
 def with_bound(rec: dict) -> dict:
     """Turns ``rec["bound"]`` (bytes ms, operations ms) into ``bound_ms``
@@ -1930,12 +2416,13 @@ def main() -> int:
         f"{store.n_triples} triples, {len(store.dict)} terms, generated in "
         f"{time.perf_counter() - t0:.1f} s")
     totals = {"sig_hash": 0, "seg_count": 0}
-    runs = compaction(store, totals)
-    gd_comp = check_compaction(store, runs)
+    # phases 3-4 record the kernels' inputs for phase 5
+    with KernelInputs() as main_inputs:
+        runs = compaction(store, totals)
+        gd_comp = check_compaction(store, runs)
 
-    # phase 4
-    eng, q_shapes, queries, answers = star_queries(store, gd_comp.fgraph,
-                                                   totals)
+        # phase 4
+        queries, answers = star_queries(store, gd_comp.fgraph, totals)
 
     # phase 4b
     t0 = time.perf_counter()
@@ -1944,31 +2431,39 @@ def main() -> int:
 
     # phase 4c
     t0 = time.perf_counter()
-    gspan_baseline(dev, totals)
+    with_parity("gspan phase", dev, gspan_baseline, totals)
     log(f"gspan phase: {time.perf_counter() - t0:.1f} s")
 
     # phase 4d
     snap = gd_comp.snapshot
     t0 = time.perf_counter()
-    mutations(store, runs, cfg, dev, totals)
+    with_parity("mutation phase", dev, mutations, store, runs, cfg, totals)
     del cfg
     log(f"mutation phase: {time.perf_counter() - t0:.1f} s")
 
     # phase 4e
     t0 = time.perf_counter()
-    durable_online(store, snap, gd_comp.backend, queries, dev, totals)
+    with_parity("online phase", dev, durable_online, store, snap,
+                gd_comp.backend, queries, totals)
     del snap
     log(f"online phase: {time.perf_counter() - t0:.1f} s")
 
     # phase 4f
     t0 = time.perf_counter()
-    crash_sweep(gd_comp.backend, dev, totals)
+    with_parity("crash sweep phase", dev, crash_sweep, gd_comp.backend,
+                totals)
     log(f"crash sweep phase: {time.perf_counter() - t0:.1f} s")
 
+    # phase 4g
+    t0 = time.perf_counter()
+    with_parity("bgp and graph server phase", dev, bgp_and_graph_server,
+                store, gd_comp.snapshot, totals)
+    log(f"bgp and graph server phase: {time.perf_counter() - t0:.1f} s")
+
     # phase 5
-    shapes = sorted({s for r in runs.values() for s in r[2]} | set(q_shapes))
-    times = kernel_times(*main_path_parity(store, eng, shapes, dev))
-    del store, runs, gd_comp, eng
+    log(f"main-path parity: {main_inputs.check(dev)}, all bit-exact")
+    times = kernel_times(*main_inputs.widest_sweep(dev))
+    del store, runs, gd_comp, main_inputs
     torch.cuda.empty_cache()
 
     # phase 6

@@ -303,6 +303,45 @@ class FactorizedGraph:
         _, src = self.members_of(t.surrogates)
         return np.bincount(src, minlength=t.n_molecules).astype(np.int64)
 
+    def am(self, class_id: int) -> int:
+        """Total absorbed membership of a class (Def. 4.8's AM over the
+        factorized population) -- a planner cardinality input."""
+        t = self.tables.get(int(class_id))
+        if t is None or t.n_molecules == 0:
+            return 0
+        return int(self.support(int(class_id)).sum())
+
+    def ami(self, class_id: int) -> int:
+        """Molecule count of a class (Def. 4.8's AMI): the row count a
+        molecule-granularity evaluation touches."""
+        t = self.tables.get(int(class_id))
+        return int(t.n_molecules) if t is not None else 0
+
+    def molecule_of(self, class_id: int, ents: np.ndarray) -> np.ndarray:
+        """Per entity, the surrogate it is absorbed under in this class
+        (-1 if not absorbed there).  One binary-search walk over the
+        subject column of the instanceOf partition -- the entity ->
+        molecule side of a molecule-level join, O(n log) in the probe
+        set, never in AM."""
+        ents = np.asarray(ents, np.int64).reshape(-1)
+        out = np.full(ents.shape[0], -1, np.int64)
+        t = self.tables.get(int(class_id))
+        if t is None or t.n_molecules == 0 or ents.shape[0] == 0:
+            return out
+        sl = self.store.index.pred_slice(self.store.INSTANCE_OF)
+        if sl.shape[0] == 0:
+            return out
+        if self._inst_subjects is None:
+            self._inst_subjects = np.ascontiguousarray(sl[:, 0])
+        lo = np.searchsorted(self._inst_subjects, ents, side="left")
+        hi = np.searchsorted(self._inst_subjects, ents, side="right")
+        counts = hi - lo
+        src = np.repeat(np.arange(ents.shape[0]), counts)
+        sgs = sl[csr_take(lo, counts), 2].astype(np.int64)
+        keep = in_sorted(sgs, t.surrogates.astype(np.int64))
+        out[src[keep]] = sgs[keep]
+        return out
+
     def is_surrogate(self, ids: np.ndarray) -> np.ndarray:
         return in_sorted(np.asarray(ids).reshape(-1), self.surrogate_ids)
 

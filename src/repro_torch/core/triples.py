@@ -93,6 +93,19 @@ class TermDict:
     def term(self, i: int) -> str:
         return self._terms[i]
 
+    def terms(self, ids) -> list[str]:
+        """The terms of an id array, in its order (one list walk)."""
+        t = self._terms
+        return [t[i] for i in np.asarray(ids).reshape(-1).tolist()]
+
+    def decode_rows(self, rows) -> list[tuple[str, ...]]:
+        """An (R, C) id array as R tuples of C terms."""
+        rows = np.asarray(rows)
+        if rows.shape[1] == 0:
+            return [()] * rows.shape[0]
+        return list(zip(*(self.terms(rows[:, j])
+                          for j in range(rows.shape[1]))))
+
     def __len__(self) -> int:
         return len(self._terms)
 

@@ -26,6 +26,12 @@ never a wrong answer.  First launches of a bucket shape are recorded in
 Device buffers are keyed by ``(epoch, class)``: an engine rebound to a
 new snapshot (``QueryEngine.rebind``) can never serve a stale molecule
 table, and buffers older than the previous epoch are evicted.
+
+Multi-star BGPs with FILTERs go through ``QueryEngine.query_bgp``
+(:mod:`repro_torch.query.bgp`): the cost-based planner picks raw or
+factorized per star, and on ``backend="device"`` every deferred star's
+molecule match runs through :func:`match_molecules_batch`, grouped per
+class.
 """
 from __future__ import annotations
 
@@ -37,6 +43,8 @@ from ..core.sweep import (MAX_SWEEP_CANDIDATES, _note_trace,
                           bucket_candidates, bucket_cols, bucket_rows,
                           register_stats_reset)
 from ..kernels import ops as kops
+from .bgp.exec import execute_bgp
+from .bgp.planner import plan_bgp
 from .star import Bindings, StarQuery, eval_factorized, eval_raw
 
 # launched-match accounting for the batched query path (mirrors
@@ -139,6 +147,9 @@ class QueryEngine:
         # snapshot, anything older is unreachable and evicts on rebind
         self._bufs: dict[tuple[int, int], _TableBuffer] = {}
         self.buffer_evictions = 0
+        # planner/deferral probe cache (class stats, per-prop deferral
+        # guards) -- valid for one fgraph only, dropped on rebind
+        self._bgp_cache: dict = {}
 
     def rebind(self, fgraph: FactorizedGraph, epoch: int) -> None:
         """Swap in a new snapshot's fgraph.  Device buffers older than
@@ -160,6 +171,7 @@ class QueryEngine:
             self.buffer_evictions += evicted
             if self.metrics is not None:
                 self.metrics.observe("query.buffer_evictions", evicted)
+        self._bgp_cache = {}
 
     @property
     def raw_store(self):
@@ -182,6 +194,47 @@ class QueryEngine:
                                kops.resolve_device(self.device))
             self._bufs[key] = buf
         return buf
+
+    def query_bgp(self, q, strategy: str = "auto", backend: str = "host",
+                  posthoc_filters: bool = False,
+                  return_stats: bool = False):
+        """Answer a multi-star :class:`~repro_torch.query.bgp.BGPQuery`.
+
+        ``strategy="auto"`` runs the cost-based planner per star;
+        ``"raw"`` / ``"factorized"`` pin every star.  ``backend="device"``
+        routes every deferred star's molecule match through the batched
+        match on the engine's ``device`` -- grouped per class, one
+        launch pair per chunk; it resolves the device first, so without
+        CUDA it raises even when no star is deferred.
+        ``posthoc_filters=True`` is the baseline: filters applied on
+        fully materialized bindings instead of molecule columns.
+        """
+        if backend == "device":
+            kops.resolve_device(self.device)
+        plan = plan_bgp(self.fgraph, q, strategy=strategy,
+                        cache=self._bgp_cache)
+        mol_rows = None
+        if backend == "device":
+            QUERY_EXEC["batches"] += 1
+            mol_rows = {}
+            by_class: dict[int, list[int]] = {}
+            for sp in plan.stars:
+                if sp.deferred:
+                    by_class.setdefault(
+                        int(q.stars[sp.index].class_id), []).append(sp.index)
+            for cid, idxs in by_class.items():
+                table = self.fgraph.tables[cid]
+                stacks = [q.stars[i].ground_arms for i in idxs]
+                rows = match_molecules_batch(self._buffer(cid), table, stacks)
+                for i, r in zip(idxs, rows):
+                    mol_rows[i] = r
+        needs_raw = any(sp.strategy == "raw" for sp in plan.stars)
+        out, stats = execute_bgp(
+            self.fgraph, q, plan,
+            raw_store=self.raw_store if needs_raw else None,
+            mol_rows=mol_rows, posthoc_filters=posthoc_filters)
+        stats["plan"] = plan
+        return (out, stats) if return_stats else out
 
     def query_batch(self, queries, strategy: str = "factorized",
                     backend: str = "host") -> list[Bindings]:

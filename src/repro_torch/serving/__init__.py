@@ -1,9 +1,13 @@
-"""LM serving: the batched ``Engine`` with factorized shared prefixes.
+"""Serving: the batched LM ``Engine`` with factorized shared prefixes,
+and ``GraphQueryService``, the star- and BGP-query endpoint over a
+compacted graph.
 
-``GraphQueryService`` and the sharded service of the JAX package wait
-for a later slice.
+The sharded fan-out service of the JAX package waits for the sharded
+backend.
 """
-from .engine import (PREFIX_POLICIES, Engine, PrefixPolicy,  # noqa: F401
+from .engine import (PREFIX_POLICIES, BGPQueryRequest,  # noqa: F401
+                     BGPQueryResponse, Engine, GraphQueryRequest,
+                     GraphQueryResponse, GraphQueryService, PrefixPolicy,
                      Request)
 from .prefix_factorization import (PrefixPlan, expand,  # noqa: F401
                                    plan_prefix_sharing, prefix_edges_cost)

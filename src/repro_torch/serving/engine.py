@@ -22,6 +22,10 @@ decodes it a second time, which advances an RG-LRU state twice).
 Policies (``PREFIX_POLICIES``): ``auto`` plans and honors a positive
 sharing decision, ``flat`` serves plain batched prefill, ``measure``
 plans (``Engine.last_plan``) but serves flat.
+
+The graph-query endpoint (:class:`GraphQueryService`, the port of the
+JAX package's) answers term-level star and multi-star BGP requests on a
+compacted graph, one snapshot per wave.
 """
 from __future__ import annotations
 
@@ -187,3 +191,307 @@ class Engine:
         for r in batch:
             r.out = outs[r.rid]
         return outs
+
+
+# -- graph-query endpoint -----------------------------------------------------
+
+@dataclasses.dataclass
+class GraphQueryRequest:
+    """One star BGP at the term level: ``arms`` are (property term,
+    object term or None-for-variable) pairs, plus an optional class."""
+
+    rid: int
+    arms: tuple[tuple[str, str | None], ...]
+    class_term: str | None = None
+    strategy: str = "factorized"     # "factorized" | "raw"
+
+
+@dataclasses.dataclass
+class GraphQueryResponse:
+    rid: int
+    subjects: list[str]
+    var_props: tuple[str, ...]
+    var_objects: list[tuple[str, ...]]   # aligned with subjects
+    strategy: str
+    n_rows: int
+    # "ok" | "degraded" (factorized path failed; answered via raw
+    # fallback) | "shed" (per-wave deadline exhausted; NOT evaluated)
+    status: str = "ok"
+
+
+@dataclasses.dataclass
+class BGPQueryRequest:
+    """A multi-star BGP at the term level.  Each star is ``(subject,
+    arms, class_term)`` with arms as (property term, object term) pairs;
+    any term starting with ``"?"`` is a variable (subjects must be
+    variables).  ``filters`` are ``(var, op, value term)`` triples with
+    ``op`` one of ``== != < <= > >=``."""
+
+    rid: int
+    stars: tuple[tuple[str, tuple[tuple[str, str], ...], str | None], ...]
+    filters: tuple[tuple[str, str, str], ...] = ()
+    strategy: str = "auto"           # "auto" | "raw" | "factorized"
+
+
+@dataclasses.dataclass
+class BGPQueryResponse:
+    rid: int
+    variables: tuple[str, ...]       # canonical output column order
+    rows: list[tuple[str, ...]]      # decoded bindings, aligned
+    strategies: tuple[str, ...]      # planner's per-star choices
+    n_rows: int
+    status: str = "ok"               # "ok" | "degraded" | "shed"
+
+
+def _compile_star(req: GraphQueryRequest, d):
+    """Term-level star request -> id-level :class:`StarQuery` (``None``
+    when any term is unknown to the dictionary: nothing can match it)."""
+    from ..query import StarQuery
+    cid = None
+    if req.class_term is not None:
+        cid = d.lookup(req.class_term)
+        if cid is None:
+            return None
+    arms = []
+    for p, o in req.arms:
+        pid = d.lookup(p)
+        if pid is None:
+            return None
+        if o is None:
+            arms.append((pid, None))
+        else:
+            oid = d.lookup(o)
+            if oid is None:
+                return None
+            arms.append((pid, oid))
+    return StarQuery(arms=tuple(arms), class_id=cid)
+
+
+def _compile_bgp_query(req: BGPQueryRequest, d):
+    """Term-level BGP request -> id-level ``BGPQuery`` (``None`` when any
+    ground term or filter value is unknown to the dictionary)."""
+    from ..query import BGPQuery, Filter, StarPattern
+    from ..query.bgp import is_var
+
+    def enc(t):
+        return t if is_var(t) else d.lookup(t)
+
+    stars = []
+    for subject, arms, class_term in req.stars:
+        cid = None
+        if class_term is not None:
+            cid = d.lookup(class_term)
+            if cid is None:
+                return None
+        enc_arms = []
+        for p, o in arms:
+            pid, oid = d.lookup(p), enc(o)
+            if pid is None or oid is None:
+                return None
+            enc_arms.append((pid, oid))
+        stars.append(StarPattern(subject, tuple(enc_arms), class_id=cid))
+    filters = []
+    for var, op, value in req.filters:
+        vid = d.lookup(value)
+        if vid is None:
+            return None
+        filters.append(Filter(var, op, vid))
+    return BGPQuery(stars=tuple(stars), filters=tuple(filters))
+
+
+class GraphQueryService:
+    """Star- and BGP-query endpoint over a compacted graph (the paper's
+    "queries get faster on G'" claim, served).
+
+    Wraps a :class:`~repro_torch.query.QueryEngine` with the same
+    queue/run shape as the LM :class:`Engine`: requests accumulate via
+    :meth:`submit`, and :meth:`run` drains the queue -- class-constrained
+    in-SP star queries of one wave ride the batched molecule match when
+    ``backend="device"``, everything else evaluates on host.  Terms
+    unknown to the dictionary yield empty binding sets.
+    :class:`BGPQueryRequest` entries of the same queue route through the
+    cost-based BGP engine (``QueryEngine.query_bgp``), deferred stars on
+    the same backend.
+
+    ``device`` (default ``"cuda"``) is where ``backend="device"`` runs;
+    it is resolved at construction, so without CUDA the constructor
+    raises instead of every wave degrading to the host.
+
+    ``source`` is a *snapshot handle*, any of: a bare
+    ``FactorizedGraph``; a :class:`~repro_torch.api.GraphSnapshot`; an
+    object with a ``.snapshot`` property (``OnlineCompactionService``,
+    ``Compactor``) -- the live handle; or a zero-arg callable returning
+    any of these.  Each ``run`` wave resolves the handle ONCE and serves
+    the whole wave from that immutable snapshot: queries arriving during an
+    in-flight recompaction are answered from the old epoch, and the next
+    wave picks up the swap.  The engine's device buffers are
+    epoch-keyed, so a swap invalidates them without coordination.
+
+    **Graceful degradation** (all counted in ``metrics``, a
+    :class:`~repro_torch.online.metrics.MetricsHub`):
+
+    * ``max_pending`` bounds the admission queue -- a full queue sheds
+      the submit (``submit`` returns ``False``; ``admission.shed``);
+    * ``wave_deadline_s`` budgets one ``run`` wave on ``clock`` (default
+      ``time.monotonic``) -- requests the budget cannot reach are
+      answered with ``status="shed"`` and empty bindings
+      (``wave.deadline_shed``), never dropped;
+    * on the host backend, a factorized-path failure mid-wave falls back
+      to raw ``expand()`` evaluation for the affected requests
+      (``status="degraded"``, ``wave.raw_fallback``) -- answers stay
+      correct, only slower.  On the device backend a failure raises: a
+      kernel that does not build or launch is never answered quietly on
+      the host.
+    """
+
+    def __init__(self, source, *, backend: str = "host", device="cuda",
+                 max_pending: int | None = None,
+                 wave_deadline_s: float | None = None,
+                 metrics=None, clock=None):
+        from ..online.metrics import MetricsHub
+        from ..query import QueryEngine
+        self._source = source
+        self.backend = backend
+        if backend == "device":
+            device = resolve_device(device)
+        snap = self._resolve()
+        self.engine = QueryEngine(snap.fgraph, device=device,
+                                  epoch=snap.epoch)
+        self.queue: list = []
+        self.max_pending = max_pending
+        self.wave_deadline_s = wave_deadline_s
+        self.metrics = metrics if metrics is not None else MetricsHub()
+        self._clock = clock if clock is not None else time.monotonic
+        for ch in ("admission.shed", "wave.deadline_shed",
+                   "wave.raw_fallback"):
+            self.metrics.channel(ch)
+
+    def _resolve(self):
+        """Current snapshot from the handle (one atomic read)."""
+        from ..api.snapshot import GraphSnapshot
+        src = self._source
+        if callable(src):
+            src = src()
+        if isinstance(src, GraphSnapshot):
+            return src
+        snap = getattr(src, "snapshot", None)
+        if snap is not None:
+            return snap
+        return GraphSnapshot(fgraph=src, epoch=0)   # bare FactorizedGraph
+
+    @property
+    def fgraph(self):
+        """The fgraph a wave starting now would serve from."""
+        return self._resolve().fgraph
+
+    @property
+    def epoch(self) -> int:
+        return int(self._resolve().epoch)
+
+    def submit(self, req) -> bool:
+        """Admit ``req`` into the next wave.  Returns ``False`` (and
+        counts ``admission.shed``) when the bounded queue is full."""
+        if self.max_pending is not None \
+                and len(self.queue) >= self.max_pending:
+            self.metrics.observe("admission.shed", 1)
+            return False
+        self.queue.append(req)
+        return True
+
+    def _run_bgp(self, req: BGPQueryRequest, snap) -> BGPQueryResponse:
+        q = _compile_bgp_query(req, snap.fgraph.store.dict)
+        if q is None:        # unknown term: nothing can match it
+            return BGPQueryResponse(req.rid, (), [], (), 0)
+        try:
+            b, stats = self.engine.query_bgp(
+                q, strategy=req.strategy, backend=self.backend,
+                return_stats=True)
+            status = "ok"
+        except Exception:
+            if req.strategy == "raw" or self.backend == "device":
+                raise            # the fallback itself failed, or the card
+            # factorized/auto path failed mid-wave: answer from the
+            # raw expansion instead of failing the request (counted)
+            self.metrics.observe("wave.raw_fallback", 1)
+            b, stats = self.engine.query_bgp(
+                q, strategy="raw", backend="host", return_stats=True)
+            status = "degraded"
+        return BGPQueryResponse(
+            rid=req.rid, variables=b.columns,
+            rows=snap.fgraph.store.dict.decode_rows(b.rows),
+            strategies=stats["plan"].strategies, n_rows=b.n_rows,
+            status=status)
+
+    def _shed(self, req):
+        self.metrics.observe("wave.deadline_shed", 1)
+        if isinstance(req, BGPQueryRequest):
+            return BGPQueryResponse(req.rid, (), [], (), 0, status="shed")
+        return GraphQueryResponse(req.rid, [], (), [], req.strategy, 0,
+                                  status="shed")
+
+    def run(self) -> dict:
+        batch, self.queue = self.queue, []
+        if not batch:
+            return {}
+        deadline = (None if self.wave_deadline_s is None
+                    else self._clock() + self.wave_deadline_s)
+
+        def overdue():
+            return deadline is not None and self._clock() >= deadline
+
+        # resolve the handle once: the whole wave -- compilation, batched
+        # match, term decoding -- reads this one immutable snapshot
+        snap = self._resolve()
+        self.engine.rebind(snap.fgraph, snap.epoch)
+        d = snap.fgraph.store.dict
+        out: dict = {}
+        bgps = [r for r in batch if isinstance(r, BGPQueryRequest)]
+        batch = [r for r in batch if not isinstance(r, BGPQueryRequest)]
+        for req in bgps:      # multi-star: planned + joined per request
+            if overdue():     # deadline spent: explicit shed, not a drop
+                out[req.rid] = self._shed(req)
+                continue
+            out[req.rid] = self._run_bgp(req, snap)
+        if overdue():
+            for req in batch:
+                out[req.rid] = self._shed(req)
+            return out
+        compiled = [(req, _compile_star(req, d)) for req in batch]
+        # factorized queries of the wave evaluate as ONE batch (device
+        # backend: one molecule-match launch pair per class chunk)
+        fact = [(req, q) for req, q in compiled
+                if q is not None and req.strategy == "factorized"]
+        degraded: set[int] = set()
+        try:
+            results = self.engine.query_batch([q for _, q in fact],
+                                              backend=self.backend)
+        except Exception:
+            if self.backend == "device":
+                raise
+            # batched factorized path failed mid-wave: every factorized
+            # request of this wave re-evaluates on the raw expansion
+            self.metrics.observe("wave.raw_fallback", len(fact))
+            results = [self.engine.query(q, strategy="raw")
+                       for _, q in fact]
+            degraded = {req.rid for req, _ in fact}
+        by_rid = {req.rid: b for (req, _), b in zip(fact, results)}
+        for req, q in compiled:
+            if q is None:
+                out[req.rid] = GraphQueryResponse(
+                    req.rid, [], (), [], req.strategy, 0)
+                continue
+            b = by_rid.get(req.rid)
+            if b is None:                       # raw strategy, host only
+                if overdue():
+                    out[req.rid] = self._shed(req)
+                    continue
+                b = self.engine.query(q, strategy=req.strategy)
+            out[req.rid] = GraphQueryResponse(
+                rid=req.rid,
+                subjects=d.terms(b.subjects),
+                var_props=tuple(d.terms(b.var_props)),
+                var_objects=d.decode_rows(b.rows()[:, 1:]),
+                strategy="raw" if req.rid in degraded else req.strategy,
+                n_rows=b.n_rows,
+                status="degraded" if req.rid in degraded else "ok")
+        return out
