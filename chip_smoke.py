@@ -102,6 +102,28 @@ Phases, each an assertion (any failure exits non-zero):
    ``sig_hash`` must launch in (a), (b) and (c), ``seg_count`` in (a)
    and ``serve_online``, and each must match its plain version on the
    inputs of every shape the phase launched it at;
+4h. the sharded backend and the sharded graph, every mesh entry the one
+   card (the exchange a permutation on it): (a) ``ami_bucketed_batch``
+   at the gfsp sweep's (2^21, 8) x 8 on 4- and 8-way meshes, equal to
+   the one-device sweep's counts, and on a 2^19-row slice at the
+   default headroom and one that overflows, equal to the same call on
+   a CPU mesh (the kernels' plain versions); (b) ``Compactor(...,
+   "sharded")`` on a 4-way mesh, gfsp ``run`` and the efsp plan, plans,
+   G' sha1 and digest equal to phase 3's device runs; (c)
+   ``ShardedFactorizedGraph.partition`` into 4 shards, ``detect_all``
+   on the device backend with the split classes' AMI by the exchange
+   (equal to the host count), the digest equal to phase 3's, traffic
+   and resident bytes per shard printed; (d) ``BENCH_fsp.json``'s eight
+   ``shard_matrix`` cells (100k and 1M triples, 1/2/4/8 shards) on the
+   card, digests, query digests, ``collective_ami``, ``traffic``,
+   ``shard_weights`` and resident bytes equal to the record; (e) 4g(b)'s
+   ``auto`` wave (stars factorized, BGPs planned) through
+   ``ShardedQueryService`` over (c)'s shards: every response ``ok``, no
+   fallback or shed, the binding sets of 4g(b)'s replicated
+   ``GraphQueryService`` responses; (f) ``python -m repro_torch.launch.serve
+   --sharded 4`` at its defaults.  Both kernels must launch in (a)-(d),
+   and each must match its plain version on the inputs of every shape
+   the phase launched it at;
 5. each kernel against its plain version on the inputs of every shape
    phases 3-4 launched it at, then its launches on the main path, its
    time beside its plain version's, its bound and a library yardstick,
@@ -135,7 +157,7 @@ Phases, each an assertion (any failure exits non-zero):
    flash kernel at the flat-prefill shape beside them.  The
    flat-prefill shape's numbers go into the record.
 
-Phases 3-4 (for phase 5) and each of 4c-4g record the inputs of
+Phases 3-4 (for phase 5) and each of 4c-4h record the inputs of
 ``sig_hash`` and ``seg_count`` as they run (``KernelInputs``: a host
 copy of the first call of each shape) and hold the kernels on them
 afterwards, bit for bit; those launches come after the phase's counts
@@ -146,7 +168,7 @@ Phase 7 also traces one flat prefill and four decode steps with
 kernels that took most of its time.
 
 The last two lines are the ``{"kernels": [...]}`` record -- five routes:
-``sig_hash``, ``seg_count`` (their launches summed over phases 3-4g),
+``sig_hash``, ``seg_count`` (their launches summed over phases 3-4h),
 ``flash_attention`` (bf16, tensor cores;
 launches of phase 7), ``flash_attention_f32`` (float32, CUDA cores;
 launches of phase 7b, its time at the flat-prefill shape) and
@@ -165,6 +187,7 @@ import shutil
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -1627,8 +1650,10 @@ class TripleScan:
         return unique_rows(rows)
 
 
-def graph_server(store, snap, totals) -> None:
-    """Phase 4g (b): ``GraphQueryService`` at 10M, three waves."""
+def graph_server(store, snap, totals) -> dict:
+    """Phase 4g (b): ``GraphQueryService`` at 10M, three waves; returns
+    the ``auto`` wave's responses (phase 4h(e) holds the sharded service
+    to them)."""
     import dataclasses
     import numpy as np
     import torch
@@ -1722,6 +1747,7 @@ def graph_server(store, snap, totals) -> None:
             f"star request {rid} differs from a scan of the triples"
     log(f"graph server: {len(star_rows)} star answers equal a plain scan of "
         f"the original triples ({time.perf_counter() - t0:.1f} s)")
+    return waves["auto"]
 
 
 def graph_entry_points(totals) -> None:
@@ -1774,18 +1800,369 @@ def graph_entry_points(totals) -> None:
         shutil.rmtree(root, ignore_errors=True)
 
 
-def bgp_and_graph_server(store, snap, totals) -> None:
-    """Phase 4g: (a), (b) and (c)."""
+def bgp_and_graph_server(store, snap, totals) -> dict:
+    """Phase 4g: (a), (b) and (c); returns (b)'s ``auto`` wave."""
     reset_launches()
     t0 = time.perf_counter()
     bgp_matrix(totals)
     log(f"bgp matrix: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    graph_server(store, snap, totals)
+    auto_wave = graph_server(store, snap, totals)
     log(f"graph server: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     graph_entry_points(totals)
     log(f"graph entry points: {time.perf_counter() - t0:.1f} s")
+    return auto_wave
+
+
+# ---------------------------------------------------------------------------
+# phase 4h: the sharded backend and the sharded graph
+# ---------------------------------------------------------------------------
+
+# 4h: phase 3's 10M store sharded 4 ways on the one card (every mesh entry
+# is the card, so the exchange is a permutation on it); (a) the exchange
+# also on 8 entries, at the default headroom and one that overflows, a
+# slice of the Observation bucket held against the same call on a CPU
+# mesh (the kernels' plain versions)
+SHARDS = 4
+EXCHANGE_SHARDS = (4, 8)
+EXCHANGE_CAPS = (4.0, 0.25)
+EXCHANGE_CPU_ROWS = 1 << 19
+
+
+def drop_one_masks(k: int, kb: int):
+    """The sweep's (kb, kb) drop-one stack over k active columns of a
+    kb-wide bucket (rows from k on are the no-op full candidate)."""
+    import numpy as np
+    masks = np.zeros((kb, kb), np.int32)
+    masks[:, :k] = 1
+    masks[np.arange(k), np.arange(k)] = 0
+    return masks
+
+
+def sharded_exchange(store, dev, totals) -> None:
+    """Phase 4h (a): ``ami_bucketed_batch`` at the gfsp sweep's shape."""
+    import numpy as np
+    import torch
+    from repro_torch.core.distributed import (EXCHANGE_STATS,
+                                              ami_bucketed_batch,
+                                              reset_exchange_stats)
+    from repro_torch.core.star import ami_device_batch
+    from repro_torch.core.sweep import bucket_cols, bucket_rows
+    from repro_torch.data.synthetic import OBSERVATION
+    from repro_torch.dist.mesh import make_mesh
+
+    cid = store.dict.lookup(OBSERVATION)
+    props = sorted(int(p) for p in store.class_properties(cid))
+    _, mat = store.object_matrix(cid, props)
+    n, k = mat.shape
+    nb, kb = bucket_rows(n, max(EXCHANGE_SHARDS)), bucket_cols(k)
+    buf = np.zeros((nb, kb), np.int32)
+    buf[:n, :k] = mat
+    valid = np.arange(nb) < n
+    masks = drop_one_masks(k, kb)
+    on = [torch.from_numpy(x).to(dev) for x in (buf, valid, masks)]
+    # the one-device sweep's counts, before the phase's launches count
+    want = ami_device_batch(on[0], valid=on[1], col_masks=on[2]).tolist()
+    reset_launches()
+    for shards in EXCHANGE_SHARDS:
+        mesh = make_mesh((shards,), ("data",), dev)
+        reset_exchange_stats()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = ami_bucketed_batch(*on, mesh).tolist()
+        ms = (time.perf_counter() - t0) * 1e3
+        assert got == want, (shards, got, want)
+        log(f"exchange {shards}-way at ({nb}, {kb}) x {kb}: {ms:.1f} ms, "
+            f"{EXCHANGE_STATS['bytes']} B sent, amis {got} == the "
+            "one-device sweep's")
+    rows = min(EXCHANGE_CPU_ROWS, nb)
+    part = [torch.from_numpy(x) for x in (buf[:rows], valid[:rows])]
+    exact = ami_device_batch(part[0], valid=part[1],
+                             col_masks=torch.from_numpy(masks)).tolist()
+    for shards in EXCHANGE_SHARDS:
+        for cap in EXCHANGE_CAPS:
+            reset_exchange_stats()
+            got = ami_bucketed_batch(
+                part[0].to(dev), part[1].to(dev), on[2],
+                make_mesh((shards,), ("data",), dev),
+                cap_factor=cap).tolist()
+            dropped = EXCHANGE_STATS["dropped"]
+            plain = ami_bucketed_batch(
+                *part, masks, make_mesh((shards,), ("data",), "cpu"),
+                cap_factor=cap).tolist()
+            assert got == plain, (shards, cap, got, plain)
+            if cap == 4.0:
+                assert got == exact and dropped == 0, (got, exact)
+            else:
+                assert dropped > 0 and got != exact, "nothing overflowed"
+            log(f"exchange {shards}-way at ({rows}, {kb}) x {kb}, headroom "
+                f"{cap}: {dropped} signatures overflowed, amis {got} == "
+                "the CPU mesh's")
+    log(f"exchange launches: "
+        f"{add_launches(totals, '4h(a)', ('sig_hash', 'seg_count'))}")
+
+
+def sharded_backend(store, runs, dev, totals) -> None:
+    """Phase 4h (b): ``Compactor(..., "sharded")`` on a 4-way mesh of the
+    card, its plans and G' against phase 3's device runs."""
+    import torch
+    from repro_torch.api import Compactor
+    from repro_torch.core import sweep
+    from repro_torch.core.distributed import EXCHANGE_STATS
+    from repro_torch.dist.mesh import make_mesh
+
+    mesh = make_mesh((SHARDS,), ("data",), dev)
+    gd_comp, gd, _ = runs[("gfsp", "device")]
+    comp = Compactor("gfsp", "sharded", backend_opts={"mesh": mesh})
+    sweep.reset_trace_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    plan = comp.plan(store)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t_plan = time.perf_counter() - t0
+    report = comp.execute(store, plan)
+    secs = time.perf_counter() - t0
+    launched = add_launches(totals, "4h(b) gfsp/sharded",
+                            ("sig_hash", "seg_count"))
+    assert plan_rows(report) == plan_rows(gd), "gfsp sharded != device plan"
+    g = sha1(report.graph.spo)
+    assert g == sha1(gd.graph.spo), "gfsp sharded G' != device G'"
+    digest = comp.snapshot.digest()
+    assert digest == gd_comp.snapshot.digest()
+    lpd = sweep.lowerings_per_descent()
+    log(f"sharded backend gfsp ({SHARDS}-way): {secs:.2f} s (plan "
+        f"{t_plan:.2f} s), launches {launched}, lowerings/descent {lpd:.3f}, "
+        f"exchanges {EXCHANGE_STATS['calls']} of "
+        f"{EXCHANGE_STATS['bytes']} B, bucket shapes "
+        f"{sorted(sweep.TRACE_COUNTS)}; plans, G' sha1 {g} and digest "
+        f"{digest} equal phase 3's device run")
+    ed = runs[("efsp", "device")][1]
+    comp = Compactor("efsp", "sharded", backend_opts={"mesh": mesh})
+    t0 = time.perf_counter()
+    plan = comp.plan(store)
+    secs = time.perf_counter() - t0
+    launched = add_launches(totals, "4h(b) efsp/sharded",
+                            ("sig_hash", "seg_count"))
+    assert plan_rows(types.SimpleNamespace(plan=plan)) == plan_rows(ed), \
+        "efsp sharded != device plan"
+    log(f"sharded backend efsp plan: {secs:.2f} s, launches {launched}; "
+        "plans equal phase 3's device run")
+
+
+def sharded_graph(store, snap, dev, totals):
+    """Phase 4h (c): the 10M store partitioned into 4 shards, detected on
+    the card shard by shard, the split classes counted by the exchange."""
+    import numpy as np
+    from repro_torch.core.distributed import (EXCHANGE_STATS,
+                                              reset_exchange_stats)
+    from repro_torch.core.star import ami
+    from repro_torch.dist.graph import ShardedFactorizedGraph
+    from repro_torch.dist.mesh import make_mesh
+
+    t0 = time.perf_counter()
+    sh = ShardedFactorizedGraph.partition(store, SHARDS)
+    t_part = time.perf_counter() - t0
+    reset_launches()
+    reset_exchange_stats()
+    t0 = time.perf_counter()
+    rep = sh.detect_all(backend="device", device=dev,
+                        mesh=make_mesh((SHARDS,), ("data",), dev))
+    secs = time.perf_counter() - t0
+    launched = add_launches(totals, "4h(c)", ("sig_hash", "seg_count"))
+    assert sh.plan.split_classes, "no class crosses shards"
+    for cid, got in rep["split_class_ami"].items():
+        props = np.asarray(sh.plan.class_props[cid], np.int32)
+        want = ami(store.object_matrix(cid, props)[1])
+        assert got == want, (cid, got, want)
+    t0 = time.perf_counter()
+    digest = sh.digest()
+    t_digest = time.perf_counter() - t0
+    assert digest == snap.digest(), "sharded digest != phase 3's"
+    log(f"sharded graph: partition into {SHARDS} in {t_part:.2f} s "
+        f"(weights {list(sh.plan.shard_weights)}, {sh.plan.n_chunks} "
+        f"chunks), detect_all on the card {secs:.2f} s, launches "
+        f"{launched}; split classes' AMI {rep['split_class_ami']} by the "
+        f"exchange ({EXCHANGE_STATS['bytes']} B sent) == the host count; "
+        f"digest {digest} == phase 3's ({t_digest:.2f} s)")
+    for sid, r in sorted(rep["shards"].items()):
+        log(f"  shard {sid}: {r}")
+    log(f"sharded graph: traffic {sh.traffic}, resident bytes per shard "
+        f"{sh.shard_nbytes()}, {sh.n_triples} triples stored")
+    return sh
+
+
+def shard_cell_queries(fg) -> list:
+    """``benchmarks/shard_cell.py``'s 64 star queries over a G'."""
+    from repro_torch.query import StarQuery
+    queries = []
+    for cid, t in sorted(fg.tables.items()):
+        for row in t.objects[:24]:
+            queries.append(StarQuery(arms=tuple(
+                (int(p), int(o)) for p, o in zip(t.props, row)),
+                class_id=cid))
+        for row in t.objects[:8]:
+            queries.append(StarQuery(arms=((int(t.props[0]), int(row[0])),
+                                           (int(t.props[-1]), None)),
+                                     class_id=cid))
+    return queries
+
+
+def shard_matrix(dev, totals) -> None:
+    """Phase 4h (d): ``BENCH_fsp.json``'s eight ``shard_matrix`` cells on
+    the card, against their recorded digests, AMIs, traffic and weights."""
+    from repro_torch.api import CompactionPlanner
+    from repro_torch.data.synthetic import WorkloadSpec, generate_workload
+    from repro_torch.dist.graph import ShardedFactorizedGraph, \
+        ShardedQueryEngine
+    from repro_torch.dist.mesh import make_mesh
+
+    cells = json.loads((ROOT / "BENCH_fsp.json").read_text())[
+        "shard_matrix"]["cells"]
+    assert len(cells) == 8, len(cells)
+    # the one-device reference compactions, before the phase's launches
+    # count: only the sharded path's count
+    refs = {}
+    for size in sorted({c["n_triples"] for c in cells}):
+        spec = WorkloadSpec(shape="sensor", n_triples=round(size, -5),
+                            seed=cells[0]["seed"])
+        snap, _ = CompactionPlanner(
+            "gfsp", "device", backend_opts={"device": dev}).run(
+            generate_workload(spec))
+        refs[size] = spec, snap
+    reset_launches()
+    for size, (spec, snap) in refs.items():
+        queries = shard_cell_queries(snap.fgraph)
+        for cell in sorted((c for c in cells if c["n_triples"] == size),
+                           key=lambda c: c["devices"]):
+            n = cell["devices"]
+            t0 = time.perf_counter()
+            store = generate_workload(spec)
+            assert store.n_triples == size
+            sh = ShardedFactorizedGraph.partition(store, n, oversplit=4)
+            # the split classes' AMI by the exchange on an n-way mesh
+            rep = sh.detect_all(backend="device", device=dev,
+                                mesh=make_mesh((n,), ("data",), dev)
+                                if n > 1 else None)
+            digest = sh.digest()
+            collective = {store.dict.term(cid): got for cid, got in
+                          rep["split_class_ami"].items()} if n > 1 else {}
+            eng = ShardedQueryEngine(sh, device=dev)
+            cold = eng.query_batch(queries, backend="device")
+            warm = eng.query_batch(queries, backend="device")
+            secs = time.perf_counter() - t0
+            got = {"detect_digest": digest, "query_digest": bgp_digest(warm),
+                   "collective_ami": collective,
+                   "traffic": dict(sh.traffic),
+                   "shard_weights": list(sh.plan.shard_weights),
+                   "split_classes": len(sh.plan.split_classes),
+                   "shard_resident_bytes": sh.shard_nbytes(),
+                   "n_queries": len(queries),
+                   "query_rows": sum(b.n_rows for b in warm)}
+            assert bgp_digest(cold) == got["query_digest"]
+            assert snap.digest() == digest
+            want = {k: cell[k] for k in got}
+            assert got == want, f"shard cell {n} x {size}: {got} != {want}"
+            log(f"shard matrix {n} x {size}: {secs:.2f} s, digest {digest}, "
+                f"query digest {got['query_digest']}, collective "
+                f"{collective}, traffic {got['traffic']}, weights "
+                f"{got['shard_weights']}: all equal BENCH_fsp.json's")
+    log(f"shard matrix launches: "
+        f"{add_launches(totals, '4h(d)', ('sig_hash', 'seg_count'))}")
+
+
+def sharded_wave(snap, sh, want, dev, totals) -> None:
+    """Phase 4h (e): 4g(b)'s ``auto`` wave of star and BGP requests
+    through ``ShardedQueryService`` over 4h(c)'s shards, against the
+    responses of the replicated ``GraphQueryService`` over phase 3's
+    snapshot in 4g(b) (``want``)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.serving import ShardedQueryService
+
+    d = snap.store.dict
+    rng = np.random.default_rng(SEED)
+    stars = graph_star_requests(snap.fgraph, d, GRAPH_STAR_REQUESTS, rng)
+    bgps = graph_bgp_requests(snap.fgraph, d, GRAPH_BGP_REQUESTS,
+                              GRAPH_STAR_REQUESTS, rng)
+    # the requests of 4g(b)'s auto wave: stars factorized, BGPs planned
+    reqs = [dataclasses.replace(r, strategy="factorized") for r in stars] \
+        + [dataclasses.replace(r, strategy="auto") for r in bgps]
+    assert sorted(want) == sorted(r.rid for r in reqs)
+    svc = ShardedQueryService(sh, device=dev)
+    for r in reqs:
+        assert svc.submit(r), f"request {r.rid} shed"
+    reset_launches()
+    t0 = time.perf_counter()
+    out = svc.run()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launched = add_launches(totals, "4h(e)")
+    m = svc.metrics.summary()
+    for ch in ("wave.raw_fallback", "admission.shed", "wave.deadline_shed"):
+        assert m[ch]["count"] == 0, f"sharded wave: {ch} {m[ch]}"
+    bad = {rid: r.status for rid, r in out.items() if r.status != "ok"}
+    assert not bad, f"sharded wave: responses not ok {bad}"
+    rows = sum(r.n_rows for r in out.values())
+    log(f"sharded wave: {len(stars)} star + {len(bgps)} BGP requests over "
+        f"{sh.n_shards} shards in {ms:.1f} ms, {rows} binding rows, launches "
+        f"{launched}")
+    t0 = time.perf_counter()
+    for r in reqs:
+        a, b = want[r.rid], out[r.rid]
+        if hasattr(a, "subjects"):
+            assert a.var_props == b.var_props and \
+                sorted(zip(a.subjects, a.var_objects)) == \
+                sorted(zip(b.subjects, b.var_objects)), r.rid
+        else:
+            assert a.variables == b.variables and \
+                sorted(a.rows) == sorted(b.rows), r.rid
+    log(f"sharded wave: every response ok, no fallback or shed, each equal "
+        f"to 4g(b)'s replicated auto wave ({time.perf_counter() - t0:.1f} "
+        f"s); traffic {sh.traffic}")
+
+
+def sharded_entry_point() -> None:
+    """Phase 4h (f): ``python -m repro_torch.launch.serve --sharded 4``."""
+    import os
+    from repro_torch.kernels import build
+
+    lib = build.build()
+    dst = ROOT / "build" / "repro_torch_kernels"
+    dst.mkdir(parents=True, exist_ok=True)
+    shutil.copy2(lib, dst / lib.name)
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--sharded",
+           str(SHARDS)]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                         timeout=300, env=dict(os.environ,
+                                               PYTHONPATH=str(ROOT / "src")))
+    last = (res.stdout.strip().splitlines() or [""])[-1]
+    assert res.returncode == 0, \
+        f"--sharded exited {res.returncode}:\n{res.stderr[-2000:]}"
+    assert last.startswith("sharded endpoint"), last
+    log(f"--sharded {SHARDS}: exit 0 in {time.perf_counter() - t0:.1f} s; "
+        f"{last}")
+
+
+def sharded(store, runs, snap, auto_wave, dev, totals) -> None:
+    """Phase 4h: (a)-(f), each timed."""
+    def timed(what, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        log(f"{what}: {time.perf_counter() - t0:.1f} s")
+        return out
+
+    timed("exchange", sharded_exchange, store, dev, totals)
+    timed("sharded backend", sharded_backend, store, runs, dev, totals)
+    sh = timed("sharded graph", sharded_graph, store, snap, dev, totals)
+    timed("shard matrix", shard_matrix, dev, totals)
+    timed("sharded wave", sharded_wave, snap, sh, auto_wave, dev, totals)
+    timed("sharded entry point", sharded_entry_point)
 
 
 # ---------------------------------------------------------------------------
@@ -2456,9 +2833,17 @@ def main() -> int:
 
     # phase 4g
     t0 = time.perf_counter()
-    with_parity("bgp and graph server phase", dev, bgp_and_graph_server,
-                store, gd_comp.snapshot, totals)
+    auto_wave = with_parity("bgp and graph server phase", dev,
+                            bgp_and_graph_server, store, gd_comp.snapshot,
+                            totals)
     log(f"bgp and graph server phase: {time.perf_counter() - t0:.1f} s")
+
+    # phase 4h
+    t0 = time.perf_counter()
+    with_parity("sharded phase", dev, sharded, store, runs,
+                gd_comp.snapshot, auto_wave, dev, totals)
+    del auto_wave
+    log(f"sharded phase: {time.perf_counter() - t0:.1f} s")
 
     # phase 5
     log(f"main-path parity: {main_inputs.check(dev)}, all bit-exact")

@@ -11,10 +11,13 @@ snapshot-holding ``Compactor``:
   ``gspan`` (mined-pattern-space baseline); ``register_detector`` adds
   more.
 * execution backends -- ``host`` (numpy), ``device`` (batched torch on
-  ``device``, default ``"cuda"``); ``register_backend`` adds more.
+  ``device``, default ``"cuda"``), ``sharded`` (rows sharded over a
+  ``dist.mesh`` mesh, one hash-bucket exchange per sweep);
+  ``register_backend`` adds more.
 """
 from .backends import (BACKENDS, DeviceBackend, ExecutionBackend,  # noqa: F401
-                       HostBackend, Registry, get_backend, register_backend)
+                       HostBackend, Registry, ShardedBackend, get_backend,
+                       register_backend)
 from .detectors import (DETECTORS, Detector, ExhaustiveDetector,  # noqa: F401
                         GreedyDetector, GSpanBaseline, get_detector,
                         register_detector)

@@ -16,6 +16,10 @@ A backend owns the execution substrate behind two methods:
 ``device``  one batched torch launch sequence per sweep on ``device``
             (default ``"cuda"``: the hand CUDA kernels); ``device="cpu"``
             runs the same path on the kernels' plain versions
+``sharded`` the bucketed sweep with rows sharded over the mesh's
+            data-parallel axes (a :mod:`repro_torch.dist.mesh` mesh of
+            torch devices), layout routed through
+            ``repro_torch.dist.sharding.make_plan``
 ==========  =================================================================
 """
 from __future__ import annotations
@@ -24,7 +28,7 @@ from typing import Protocol, Sequence, runtime_checkable
 
 from ..core.star import StarSweepResult, evaluate_subset
 from ..core.sweep import (DeviceSweepWorkspace, HostSweepWorkspace,
-                          SweepWorkspace)
+                          ShardedSweepWorkspace, SweepWorkspace)
 from ..core.triples import TripleStore
 from ..kernels.ops import resolve_device
 from ..registry import Registry
@@ -76,9 +80,52 @@ class DeviceBackend:
                                     device=self.device)
 
 
+class ShardedBackend:
+    """Bucketed sweep with the object matrix row-sharded over a mesh.
+
+    Layout policy is routed through the ``repro_torch.dist`` planner: the
+    mesh's data-parallel axes come from ``sharding.make_plan`` (DP
+    ladder, tensor-parallel axis excluded), rows are bucket-padded to the
+    DP degree and placed one block per DP coordinate on its device, and
+    padding rows are masked out of the distinct-signature count.  With
+    ``mesh=None`` this is the single-device bucketed sweep on ``device``
+    (same bucket ladder, same counters).
+
+    On a mesh the WHOLE candidate stack of a sweep runs through
+    ``core.distributed.ami_bucketed_batch`` -- the hash-bucket exchange
+    with a leading candidate axis, one launch sequence per descent.  The
+    mesh's entries carry the devices; a CUDA entry raises without a card
+    when the mesh is made (``dist.mesh.make_mesh``).
+    """
+
+    name = "sharded"
+
+    def __init__(self, mesh=None, device="cuda") -> None:
+        self.mesh = mesh
+        self.plan = None
+        # on a mesh its entries carry the devices (the first stands in
+        # for the workspace's own)
+        self.device = (resolve_device(device) if mesh is None
+                       else mesh.devices.flat[0])
+        if mesh is not None:
+            from ..dist import sharding as dsh
+            # the "model" axis is reserved: FSP rows shard over the
+            # data-parallel axes only
+            self.plan = dsh.make_plan(mesh)
+
+    def evaluate(self, store, class_id, props, n_s, am):
+        return evaluate_subset(store, class_id, props, n_s, am)
+
+    def workspace(self, store, class_id, props, n_s, am):
+        return ShardedSweepWorkspace(store, class_id, props, n_s, am,
+                                     mesh=self.mesh, plan=self.plan,
+                                     device=self.device)
+
+
 BACKENDS = Registry("execution backend")
 BACKENDS.register("host", HostBackend)
 BACKENDS.register("device", DeviceBackend)
+BACKENDS.register("sharded", ShardedBackend)
 
 
 def register_backend(name: str, cls) -> None:

@@ -330,11 +330,27 @@ class CompactionPlanner:
         return self.detector.detect(store, int(class_id),
                                     backend=self.backend, props=props)
 
+    def _shard_planner(self, sid: int) -> "CompactionPlanner":
+        """Per-shard clone: same detector/backend instances, a shard-
+        suffixed surrogate prefix so shards minting into the shared
+        dictionary can never collide on a surrogate name."""
+        return CompactionPlanner(
+            self.detector, self.backend,
+            min_predicted_savings=self.min_predicted_savings,
+            surrogate_prefix=f"{self.surrogate_prefix}/s{int(sid)}")
+
     # -- planning ----------------------------------------------------------
-    def plan(self, store: TripleStore,
+    def plan(self, store: TripleStore | None = None,
              classes: Iterable[int] | None = None, *,
-             stream: bool = False) -> CompactionPlan:
+             stream: bool = False,
+             sharded_graph=None) -> CompactionPlan | dict:
         """Rank all (or the given) classes by predicted #Edges savings.
+
+        With ``sharded_graph=`` (a
+        :class:`~repro_torch.dist.graph.ShardedFactorizedGraph`) the
+        ranking runs shard-local over each shard's semantic sub-store and
+        a ``{shard_id: CompactionPlan}`` dict comes back -- the detection
+        itself never leaves the shard.
 
         ``stream=True`` releases the store's transient decode caches
         between classes (compressed tier: resident CSR partitions,
@@ -342,6 +358,16 @@ class CompactionPlanner:
         over an out-of-core-scale graph holds at most one class's
         working set uncompressed at a time -- peak host memory is bounded
         by the largest class bucket, not the graph."""
+        if sharded_graph is not None:
+            out = {}
+            for sid, snap in enumerate(sharded_graph.snapshots):
+                sub = (snap.fgraph.store if not snap.fgraph.tables
+                       else snap.fgraph.expand())
+                out[sid] = self._shard_planner(sid).plan(
+                    sub, classes, stream=stream)
+            return out
+        if store is None:
+            raise ValueError("plan() needs a store or a sharded_graph")
         cids = ([int(c) for c in classes] if classes is not None
                 else [int(c) for c in store.classes()])
         release = getattr(store, "release_transients", None) \
@@ -572,9 +598,17 @@ class CompactionPlanner:
         return snapshot.next(fg), report
 
     # -- targeted re-detection ---------------------------------------------
-    def redetect(self, snapshot: GraphSnapshot, class_ids: Iterable[int]
-                 ) -> tuple[GraphSnapshot, RedetectReport]:
+    def redetect(self, snapshot: GraphSnapshot | None,
+                 class_ids: Iterable[int], *, sharded_graph=None
+                 ) -> tuple[GraphSnapshot, RedetectReport] | tuple:
         """Re-detect and re-factorize ONLY the given (drifted) classes.
+
+        With ``sharded_graph=`` the pass runs shard-local (``snapshot``
+        is ignored): every shard holding a dirty class builds its own
+        successor through a per-shard-prefixed planner, and the whole
+        snapshot tuple swaps atomically ONCE at the end -- a reader
+        holding the old tuple keeps a consistent world view.  Returns
+        ``(sharded_graph, {shard_id: RedetectReport})``.
 
         The dirty classes are decompacted in place (their members take
         their arms back as raw triples; every clean class's surrogate
@@ -595,6 +629,22 @@ class CompactionPlanner:
         (``report.rejected``), so an online re-detection can only ever
         improve or hold the realized edge count, never regress it.
         """
+        if sharded_graph is not None:
+            cids = sorted({int(c) for c in class_ids})
+            snaps = list(sharded_graph.snapshots)
+            reports = {}
+            for sid, snap in enumerate(snaps):
+                local = [c for c in cids
+                         if sid in sharded_graph.plan.shards_for_class(c)
+                         or c in snap.fgraph.tables]
+                if not local:
+                    continue
+                new_snap, rep = self._shard_planner(sid).redetect(
+                    snap, local)
+                snaps[sid] = new_snap
+                reports[sid] = rep
+            sharded_graph.swap(snaps)     # one atomic tuple store
+            return sharded_graph, reports
         t0 = time.perf_counter()
         fg = snapshot.fgraph
         cids = sorted({int(c) for c in class_ids})

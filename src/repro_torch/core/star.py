@@ -189,3 +189,9 @@ def multiplicities_device(objmat: torch.Tensor,
     out = torch.empty((n,), dtype=torch.int32, device=objmat.device)
     out[order] = seg_count[seg_id].to(torch.int32)         # unsort
     return out
+
+
+def edges_formula_device(ami_value, am, n_sp, n_s):
+    """Def. 4.8 on tensors (or ints): ``AMI * (|SP| + 1) + AM * |S - SP|``,
+    elementwise where its arguments are aligned stacks."""
+    return ami_value * (n_sp + 1) + am * (n_s - n_sp)

@@ -52,9 +52,13 @@ def _next_pow2(x: int) -> int:
     return 1 << max(x - 1, 0).bit_length()
 
 
-def bucket_rows(n: int) -> int:
-    """Row bucket: next power of two >= max(n, floor)."""
-    return max(_next_pow2(n), BUCKET_MIN_ROWS)
+def bucket_rows(n: int, multiple: int = 1) -> int:
+    """Row bucket: next power of two >= max(n, floor), rounded up to the
+    sharding ``multiple`` (DP degree) so shards stay equal-sized."""
+    nb = max(_next_pow2(n), BUCKET_MIN_ROWS)
+    if multiple > 1:
+        nb += (-nb) % multiple
+    return nb
 
 
 def bucket_cols(k: int) -> int:
@@ -288,8 +292,15 @@ class DeviceSweepWorkspace(_WorkspaceBase):
                  device: torch.device | str = "cuda") -> None:
         super().__init__(store, class_id, props, n_s, am)
         self.device = torch.device(device)
-        self._dev: torch.Tensor | None = None   # uploaded on first sweep
-        self._valid: torch.Tensor | None = None
+        self._dev = None            # uploaded lazily, on the first sweep
+        self._valid = None
+
+    def _placement(self, n_rows: int):
+        """(row_multiple, place | None): ``place(buf, valid)`` puts the
+        padded host parent and its row mask where the sweeps read them;
+        ``None`` uploads both whole to ``device``.  Overridden by the
+        mesh-sharded workspace."""
+        return 1, None
 
     def _ensure_uploaded(self) -> None:
         """Bucket-pad and ship the parent matrix ONCE, on first use:
@@ -298,12 +309,17 @@ class DeviceSweepWorkspace(_WorkspaceBase):
         if self._dev is not None:
             return
         n, k = self.matrix.shape
-        self.n_bucket = bucket_rows(n)
+        row_multiple, place = self._placement(n)
+        self.n_bucket = bucket_rows(n, row_multiple)
         self.k_bucket = bucket_cols(k)
         buf = np.zeros((self.n_bucket, self.k_bucket), np.int32)
         buf[:n, :k] = self.matrix
-        self._dev = torch.from_numpy(buf).to(self.device)
-        self._valid = torch.arange(self.n_bucket, device=self.device) < n
+        if place is not None:
+            self._dev, self._valid = place(buf, np.arange(self.n_bucket) < n)
+        else:
+            self._dev = torch.from_numpy(buf).to(self.device)
+            self._valid = torch.arange(self.n_bucket,
+                                       device=self.device) < n
 
     def sweep(self) -> tuple[np.ndarray, np.ndarray]:
         # the drop-one stack spans FULL bucket height so the sweep shape
@@ -342,3 +358,58 @@ class DeviceSweepWorkspace(_WorkspaceBase):
             edges_out[lo:lo + m] = edges[:m]
             amis_out[lo:lo + m] = amis[:m]
         return edges_out, amis_out
+
+
+class ShardedSweepWorkspace(DeviceSweepWorkspace):
+    """Device workspace with rows sharded over the mesh's DP axes.
+
+    With ``mesh=None`` this *is* the single-device bucketed sweep on
+    ``device`` (same bucket ladder, same counters).  On a mesh the parent
+    is padded to a multiple of the DP degree and uploaded once, one row
+    block per DP coordinate on its device, and the WHOLE candidate stack
+    of each chunk runs through one ``ami_bucketed_batch`` exchange -- one
+    launch sequence per descent, not one per candidate; the column masks
+    apply inside each shard's signature launch.
+    """
+
+    def __init__(self, store, class_id, props, n_s, am, *, mesh=None,
+                 plan=None, device="cuda") -> None:
+        self.mesh = mesh
+        self.plan = plan
+        self.dp_axes: tuple = ()
+        super().__init__(store, class_id, props, n_s, am, device=device)
+
+    def _placement(self, n_rows: int):
+        if self.mesh is None:
+            return 1, None
+        from ..dist.sharding import batch_axes_for
+        from .distributed import dp_axes_of, shard_rows
+        if self.plan is not None:
+            # prefer the planner's rung for this (padded) row count
+            axes = tuple(batch_axes_for(self.plan, bucket_rows(n_rows))
+                         or self.plan.dp_axes)
+        else:
+            axes = dp_axes_of(self.mesh)
+        self.dp_axes = axes
+        row_multiple = int(np.prod(
+            [s for a, s in zip(self.mesh.axis_names,
+                               self.mesh.devices.shape) if a in axes],
+            initial=1))
+
+        def place(buf, valid):
+            return (shard_rows(buf, self.mesh, axes),
+                    shard_rows(valid, self.mesh, axes))
+        return row_multiple, place
+
+    def _run_batch(self, stack: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        if self.mesh is None:
+            return super()._run_batch(stack)
+        from .distributed import ami_bucketed_batch
+        EXEC_STATS["lowerings"] += 1
+        _note_trace("sharded", (self.n_bucket, self.k_bucket,
+                                stack.shape[0]))
+        amis = ami_bucketed_batch(self._dev, self._valid, stack, self.mesh,
+                                  dp_axes=self.dp_axes).cpu().numpy()
+        n_sp = stack.sum(axis=1, dtype=np.int64)
+        amis = amis.astype(np.int64)
+        return num_edges_batch(amis, self.am, n_sp, self.n_s), amis

@@ -1,5 +1,7 @@
-"""Fault detection and injection for the online compaction service
-(:mod:`~repro_torch.dist.fault`).  The sharded substrate of the JAX
-package (sharding plans, the sharded graph) is a later slice of the
-port, so this package holds ``fault`` alone."""
-from . import fault  # noqa: F401
+"""Distribution substrate of the port: device meshes (:mod:`mesh`), the
+sharding planner's batch-axis rules (:mod:`sharding`), the sharded
+factorized graph with its fan-out query engine (:mod:`graph`), and fault
+detection and injection for the online compaction service
+(:mod:`fault`).  Gradient compression and elastic re-meshing wait for
+the training slice."""
+from . import fault, graph, mesh, sharding  # noqa: F401

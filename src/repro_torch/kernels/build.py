@@ -21,6 +21,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -31,6 +32,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _LIB: ctypes.CDLL | None = None
+_LIB_LOCK = threading.Lock()   # the sharded query drain launches from threads
 BUILD_LOG = ""          # compiler output of the last build (ptxas -v lines)
 
 
@@ -90,13 +92,18 @@ def build() -> Path:
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first use."""
+    """The loaded kernel library, built on first use (once, whichever
+    thread asks first)."""
     global _LIB
-    if _LIB is None:
+    if _LIB is not None:
+        return _LIB
+    with _LIB_LOCK:
+        if _LIB is not None:
+            return _LIB
         lib = ctypes.CDLL(str(build()))
         p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-        lib.repro_sig_hash.argtypes = [p, i64, i32, i64, p, i64, i64, p, i64,
-                                       p, p]
+        lib.repro_sig_hash.argtypes = [p, i64, i32, i64, p, i64, i64, p,
+                                       i64, p, p]
         lib.repro_sig_hash.restype = i32
         lib.repro_seg_count.argtypes = [p, i64, i64, p, p, p]
         lib.repro_seg_count.restype = i32

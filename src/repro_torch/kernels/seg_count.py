@@ -20,11 +20,14 @@ raises).  ``launches`` counts kernel launches and nothing else.
 """
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from . import ref
 
 launches = 0
+_COUNT = threading.Lock()   # launches may come from several threads
 
 
 def _check_args(sig_sorted):
@@ -71,5 +74,6 @@ def seg_boundaries(sig_sorted: torch.Tensor
             sig_sorted.data_ptr(), n, c, bounds.data_ptr(), counts.data_ptr(),
             torch.cuda.current_stream(sig_sorted.device).cuda_stream)
         check(err, "seg_count")
-        launches += 1
+        with _COUNT:
+            launches += 1
     return bounds, counts if batched else counts[0]

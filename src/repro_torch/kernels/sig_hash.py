@@ -26,11 +26,14 @@ Dispatch goes by the tensor's device: a CPU tensor runs
 """
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from . import ref
 
 launches = 0
+_COUNT = threading.Lock()   # launches may come from several threads
 
 
 def _check_args(mat, valid, col_masks):
@@ -129,5 +132,6 @@ def sig_hash(mat: torch.Tensor, valid: torch.Tensor | None = None,
         n if valid is not None and valid.ndim == 2 else 0,
         out.data_ptr(), torch.cuda.current_stream(mat.device).cuda_stream)
     check(err, "sig_hash")
-    launches += 1
+    with _COUNT:
+        launches += 1
     return out

@@ -23,6 +23,9 @@ N`` answers N star queries on a compacted sensor graph through
 strategies (binding sets asserted identical); ``--bgp N`` answers N
 multi-star BGPs (joins over ``procedure``/``observationResult``,
 pushed-down value filters) under the planner and both fixed strategies;
+``--sharded N`` partitions the graph into N shards, detects shard-local
+and serves a wave of star queries through ``ShardedQueryService``
+against the replicated endpoint (binding sets asserted identical);
 ``--online`` soaks the online compaction service and gates its
 guarantees (``--durable DIR`` journals and checkpoints under DIR, and
 recovers when DIR already holds state; ``--chaos SEED`` arms a seeded
@@ -34,6 +37,7 @@ graph modes need ``--device cpu`` or ``--graph-backend host``:
 
     python -m repro_torch.launch.serve --graph-queries 64 --device cpu
     python -m repro_torch.launch.serve --bgp 24 --device cpu
+    python -m repro_torch.launch.serve --sharded 4 --device cpu
     python -m repro_torch.launch.serve --online --durable DIR --chaos 0
 """
 from __future__ import annotations
@@ -213,6 +217,83 @@ def serve_bgp_queries(n_requests: int, *, n_observations: int = 600,
             "raw_ms": timings["raw"],
             "factorized_ms": timings["factorized"],
             "auto_ms": timings["auto"], "planner_mix": planner_mix}
+
+
+def serve_sharded_queries(n_requests: int, *, n_shards: int = 4,
+                          n_observations: int = 600, seed: int = 0,
+                          backend: str = "device", device="cuda") -> dict:
+    """Serve star queries through the sharded fan-out path and assert
+    binding-set parity with the replicated endpoint.
+
+    Partitions the sensor graph across ``n_shards`` shards, runs
+    shard-local detection, and drains the same request wave through a
+    :class:`~repro_torch.serving.ShardedQueryService` (per-shard wave
+    queues, parallel drain, concat merge) and a replicated
+    :class:`~repro_torch.serving.GraphQueryService` over the unsharded
+    compaction -- Def. 4.10 says the answers cannot differ, and the
+    printed cross-shard traffic shows what the fan-out actually moved
+    (binding sets only; molecule tables never leave their shard).
+    ``backend`` and ``device`` as in :func:`serve_graph_queries`: both
+    compactions and both services run there, and every response must be
+    ``"ok"``.
+    """
+    from ..api import CompactionPlanner
+    from ..data.synthetic import SensorGraphSpec, generate
+    from ..dist.graph import ShardedFactorizedGraph
+    from ..serving import ShardedQueryService
+
+    store = generate(SensorGraphSpec(n_observations=n_observations,
+                                     seed=seed))
+    snap, _ = CompactionPlanner(
+        "gfsp", _graph_backend(backend, device)).run(store.copy())
+    sharded = ShardedFactorizedGraph.partition(store.copy(), n_shards)
+    sharded.detect_all(backend=backend, device=device)
+    assert sharded.digest() == snap.digest(), \
+        "sharded detection broke digest parity"
+
+    fg = snap.fgraph
+    term = store.dict.term
+    rng = np.random.default_rng(seed)
+    reqs = []
+    classes = list(fg.tables.items())
+    for i in range(n_requests):
+        cid, t = classes[i % len(classes)]
+        row = t.objects[int(rng.integers(0, t.n_molecules))]
+        if i % 3 == 0:      # full molecule lookup
+            arms = tuple((term(p), term(int(o)))
+                         for p, o in zip(t.props, row))
+        elif i % 3 == 1:    # partial ground + variable object
+            arms = ((term(t.props[0]), term(int(row[0]))),
+                    (term(t.props[-1]), None))
+        else:               # classless variable scan (coordinator path)
+            reqs.append((((term(t.props[0]), None),), None))
+            continue
+        reqs.append((arms, term(cid)))
+
+    results, timings = {}, {}
+    for name, svc in (
+            ("replicated", GraphQueryService(fg, backend=backend,
+                                             device=device)),
+            ("sharded", ShardedQueryService(sharded, backend=backend,
+                                            device=device))):
+        results[name], timings[name] = _run_wave(svc, [
+            GraphQueryRequest(rid=rid, arms=arms, class_term=cterm)
+            for rid, (arms, cterm) in enumerate(reqs)])
+    for rid in range(len(reqs)):
+        a, b = results["replicated"][rid], results["sharded"][rid]
+        assert sorted(zip(a.subjects, a.var_objects)) \
+            == sorted(zip(b.subjects, b.var_objects)), rid
+    n_rows = sum(r.n_rows for r in results["sharded"].values())
+    print(f"sharded endpoint: {len(reqs)} star queries over "
+          f"{n_shards} shards, {n_rows} bindings -- replicated "
+          f"{timings['replicated']:.1f} ms, sharded "
+          f"{timings['sharded']:.1f} ms, cross-shard "
+          f"{sharded.traffic['query_bytes']} B (identical binding sets)")
+    return {"n_requests": len(reqs), "n_rows": n_rows,
+            "n_shards": n_shards,
+            "replicated_ms": timings["replicated"],
+            "sharded_ms": timings["sharded"],
+            "query_bytes": sharded.traffic["query_bytes"]}
 
 
 def serve_online(n_batches: int = 20, *, n_observations: int = 80,
@@ -472,6 +553,10 @@ def main(argv=None) -> dict:
     ap.add_argument("--bgp", type=int, default=0,
                     help="serve N multi-star BGP queries (joins + "
                          "filters) through the cost-based planner")
+    ap.add_argument("--sharded", type=int, default=0, metavar="N",
+                    help="serve star queries over an N-shard partitioned "
+                         "graph (fan-out path) and assert parity with "
+                         "the replicated endpoint")
     ap.add_argument("--graph-backend", default="device",
                     choices=("host", "device"),
                     help="compaction sweep and molecule-match backend of "
@@ -497,6 +582,10 @@ def main(argv=None) -> dict:
                             backend=args.graph_backend,
                             device=args.device, durable_root=args.durable,
                             chaos_seed=args.chaos)
+    if args.sharded:
+        return serve_sharded_queries(
+            max(args.graph_queries, 24), n_shards=args.sharded,
+            seed=args.seed, backend=args.graph_backend, device=args.device)
     if args.bgp:
         return serve_bgp_queries(args.bgp, seed=args.seed,
                                  backend=args.graph_backend,

@@ -495,3 +495,223 @@ class GraphQueryService:
                 n_rows=b.n_rows,
                 status="degraded" if req.rid in degraded else "ok")
         return out
+
+
+class ShardedQueryService:
+    """Fan-out request path over a
+    :class:`~repro_torch.dist.graph.ShardedFactorizedGraph`.
+
+    One bounded :class:`GraphQueryService` per shard is the request
+    surface -- each shard keeps its own wave queue, and every per-shard
+    knob (``max_pending`` admission bound, ``wave_deadline_s`` shedding,
+    the host backend's raw fallback) applies *per shard*, exactly as on
+    the replicated service.  Routing at submit:
+
+    * class-constrained star requests enqueue on every shard that owns
+      a chunk of the class (``ShardPlan.shards_for_class``).  Admission
+      is all-or-nothing across the owners: if ANY owner's queue is full
+      the whole submit sheds (``admission.shed``), never a torn fan-out.
+    * classless star requests and BGP requests go to a coordinator
+      queue (their answers need cross-shard per-arm unions / joins, not
+      concatenation) evaluated by
+      :class:`~repro_torch.dist.graph.ShardedQueryEngine` -- only binding
+      sets cross shards, bounded by the service's own ``max_pending``
+      and deadline.
+
+    :meth:`run` drains every shard queue in parallel (one thread per
+    shard, all on the one card; the kernel library loads once, and a
+    launch that fails in a thread raises from :meth:`run`) and merges
+    per request: typed subjects are uniquely owned, so the per-shard
+    binding sets concatenate duplicate-free; the merged status is
+    ``"shed"`` if any owner shed, else ``"degraded"`` if any owner
+    degraded, else ``"ok"``.
+
+    ``backend`` defaults to ``"device"`` on ``device`` (default
+    ``"cuda"``, resolved at construction, so without CUDA the
+    constructor raises).  On the device backend a failure of the
+    coordinator's path raises, as it does in every shard's service; on
+    the host backend it is answered from the raw expansion
+    (``status="degraded"``, ``wave.raw_fallback``).
+
+    Restart story: a shard rebuilt through ``repro_torch.online.recover()``
+    swaps back in with ``sharded.swap_shard(sid, service.snapshot)``;
+    the next wave's per-shard handle resolution picks up the new epoch
+    with no coordination beyond the atomic tuple store.
+    """
+
+    def __init__(self, sharded, *, backend: str = "device", device="cuda",
+                 max_pending: int | None = None,
+                 wave_deadline_s: float | None = None,
+                 metrics=None, clock=None):
+        from ..dist.graph import ShardedQueryEngine
+        from ..online.metrics import MetricsHub
+        self.sharded = sharded
+        self.backend = backend
+        if backend == "device":
+            device = resolve_device(device)
+        self.device = device
+        self.metrics = metrics if metrics is not None else MetricsHub()
+        self._clock = clock if clock is not None else time.monotonic
+        self.max_pending = max_pending
+        self.wave_deadline_s = wave_deadline_s
+        self.shards = [
+            GraphQueryService(
+                (lambda sid=sid: self.sharded.snapshots[sid]),
+                backend=backend, device=device,
+                max_pending=max_pending,
+                wave_deadline_s=wave_deadline_s,
+                metrics=self.metrics, clock=self._clock)
+            for sid in range(sharded.n_shards)]
+        self.coordinator = ShardedQueryEngine(sharded, device=device)
+        self.queue: list = []            # coordinator-evaluated requests
+        self._raw_engine = None          # degraded fallback, epoch-keyed
+
+    @property
+    def n_shards(self) -> int:
+        return self.sharded.n_shards
+
+    def _owners(self, req: GraphQueryRequest) -> tuple[int, ...] | None:
+        """Owning shards for a class-routed star request; ``None`` when
+        the request must evaluate at the coordinator instead."""
+        if req.class_term is None:
+            return None
+        cid = self.sharded.dict.lookup(req.class_term)
+        if cid is None:
+            # unknown class: empty answer from any single shard
+            return (0,)
+        return self.sharded.plan.shards_for_class(int(cid))
+
+    def submit(self, req) -> bool:
+        """Admit ``req``; ``False`` (+ ``admission.shed``) when any
+        target queue is full -- all-or-nothing across the fan-out."""
+        owners = None if isinstance(req, BGPQueryRequest) \
+            else self._owners(req)
+        if owners is None:
+            if self.max_pending is not None \
+                    and len(self.queue) >= self.max_pending:
+                self.metrics.observe("admission.shed", 1)
+                return False
+            self.queue.append(req)
+            return True
+        # capacity pre-check across every owner BEFORE any enqueue
+        if any(s.max_pending is not None
+               and len(s.queue) >= s.max_pending
+               for s in (self.shards[sid] for sid in owners)):
+            self.metrics.observe("admission.shed", 1)
+            return False
+        for sid in owners:
+            self.shards[sid].submit(req)
+        return True
+
+    def _merge_star(self, rid: int, parts: list[GraphQueryResponse]
+                    ) -> GraphQueryResponse:
+        subjects: list[str] = []
+        var_objects: list[tuple[str, ...]] = []
+        var_props: tuple[str, ...] = ()
+        for p in parts:
+            subjects.extend(p.subjects)
+            var_objects.extend(p.var_objects)
+            if p.var_props:
+                var_props = p.var_props
+        status = "ok"
+        if any(p.status == "degraded" for p in parts):
+            status = "degraded"
+        if any(p.status == "shed" for p in parts):
+            status = "shed"     # partial: at least one owner unanswered
+        self.sharded.traffic["query_bytes"] += sum(
+            8 * (len(p.subjects) + sum(len(r) for r in p.var_objects))
+            for p in parts)
+        return GraphQueryResponse(
+            rid=rid, subjects=subjects, var_props=var_props,
+            var_objects=var_objects, strategy=parts[0].strategy,
+            n_rows=len(subjects), status=status)
+
+    def _degraded(self):
+        """Replicated raw-expansion engine (built lazily per epoch) --
+        the host backend's answers-stay-correct fallback when the
+        sharded path fails."""
+        from ..core.fgraph import FactorizedGraph
+        from ..query import QueryEngine
+        epoch = self.sharded.epoch
+        if self._raw_engine is None or self._raw_engine[0] != epoch:
+            fg = FactorizedGraph(self.sharded.expand_union(), {})
+            self._raw_engine = (epoch, QueryEngine(fg, device=self.device))
+        return self._raw_engine[1]
+
+    def _coordinate(self, evaluate, fallback):
+        """``(bindings, status)`` of one coordinator request: the sharded
+        path, else -- on the host backend only -- the raw expansion."""
+        try:
+            return evaluate(), "ok"
+        except Exception:
+            if self.backend == "device":
+                raise            # a device fault is never answered on host
+            self.metrics.observe("wave.raw_fallback", 1)
+            return fallback(self._degraded()), "degraded"
+
+    def _run_coordinator(self, out: dict) -> None:
+        deadline = (None if self.wave_deadline_s is None
+                    else self._clock() + self.wave_deadline_s)
+        batch, self.queue = self.queue, []
+        d = self.sharded.dict
+        for req in batch:
+            if deadline is not None and self._clock() >= deadline:
+                self.metrics.observe("wave.deadline_shed", 1)
+                if isinstance(req, BGPQueryRequest):
+                    out[req.rid] = BGPQueryResponse(req.rid, (), [], (),
+                                                    0, status="shed")
+                else:
+                    out[req.rid] = GraphQueryResponse(
+                        req.rid, [], (), [], req.strategy, 0,
+                        status="shed")
+                continue
+            if isinstance(req, BGPQueryRequest):
+                q = _compile_bgp_query(req, d)
+                if q is None:
+                    out[req.rid] = BGPQueryResponse(req.rid, (), [], (), 0)
+                    continue
+                b, status = self._coordinate(
+                    lambda: self.coordinator.query_bgp(
+                        q, strategy=req.strategy, backend=self.backend),
+                    lambda eng: eng.query_bgp(q, strategy="raw"))
+                out[req.rid] = BGPQueryResponse(
+                    rid=req.rid, variables=b.columns,
+                    rows=d.decode_rows(b.rows), strategies=(),
+                    n_rows=b.n_rows, status=status)
+            else:                        # classless star
+                q = _compile_star(req, d)
+                if q is None:
+                    out[req.rid] = GraphQueryResponse(
+                        req.rid, [], (), [], req.strategy, 0)
+                    continue
+                b, status = self._coordinate(
+                    lambda: self.coordinator.query(
+                        q, strategy=req.strategy),
+                    lambda eng: eng.query(q, strategy="raw"))
+                out[req.rid] = GraphQueryResponse(
+                    rid=req.rid, subjects=d.terms(b.subjects),
+                    var_props=tuple(d.terms(b.var_props)),
+                    var_objects=d.decode_rows(b.rows()[:, 1:]),
+                    strategy=req.strategy, n_rows=b.n_rows, status=status)
+
+    def run(self) -> dict:
+        """Drain one wave: shard queues in parallel (one thread per
+        shard -- each thread touches only its own service; an exception
+        in one is re-raised here), the coordinator queue on the caller's
+        thread, then the fan-out merge."""
+        from concurrent.futures import ThreadPoolExecutor
+        out: dict = {}
+        self.coordinator.rebind()
+        busy = [s for s in self.shards if s.queue]
+        shard_outs = []
+        if busy:
+            with ThreadPoolExecutor(max_workers=len(busy)) as ex:
+                shard_outs = list(ex.map(lambda s: s.run(), busy))
+        self._run_coordinator(out)
+        by_rid: dict[int, list] = {}
+        for responses in shard_outs:
+            for rid, resp in responses.items():
+                by_rid.setdefault(rid, []).append(resp)
+        for rid, parts in by_rid.items():
+            out[rid] = self._merge_star(rid, parts)
+        return out
