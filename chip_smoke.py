@@ -141,21 +141,30 @@ Phases, each an assertion (any failure exits non-zero):
    system prompt + 256 of their own), 16 new tokens each, under the
    ``flat`` and the ``auto`` policy, timed after an untimed pass of
    both (which records the kernels' inputs for phase 8); both LM
-   kernels must launch (flash only as its bf16 tensor-core kernel),
-   every logit be finite, and the next-token logits of the two policies
-   agree; then (7b) the two policies again in float32 on a reduced
-   config (flash only as its float32 CUDA-core kernel), where they must
-   agree to float32 rounding (tight enough to see a last prompt token
-   decoded twice), and the float32 kernel against its plain version on
-   the inputs that path gave it;
-8. both LM kernels against their plain versions on the inputs phase 7
-   launched them with (one per distinct shape; bf16 flash within each
-   query row's limit, which a control -- the plain version with one
-   in-band KV tile left out -- must break), and their times, plain
-   times, bounds and library yardsticks at every shape phase 7 recorded
-   (the scan's decode step among them); the float32 CUDA-core
-   flash kernel at the flat-prefill shape beside them.  The
-   flat-prefill shape's numbers go into the record.
+   kernels must launch (flash only as its bf16 tensor-core kernel), as
+   many times as the layers call them, every logit be finite, and the
+   next-token logits of the two policies agree; then (7b) the two
+   policies again in float32 on a reduced config (flash only as its
+   float32 CUDA-core kernel), where they must agree to float32 rounding
+   (tight enough to see a last prompt token decoded twice), and the
+   float32 kernels against their plain versions on the inputs that path
+   gave them;
+7c. the same traffic (and its 7b) through the homogeneous stacks:
+   qwen2-0.5b (24 layers of global GQA attention, d 896, 14/2 heads x
+   64, vocab 151936: the bf16 flash kernel at head size 64, causal, no
+   window, and no scan) and mamba2-780m (48 SSD layers, d 1536, 48 heads
+   x 64, state 128: ``linear_scan`` as SSD's inter-chunk recurrence at
+   (8 x 48, 9, 128 x 64), and no flash).  mamba2 holds no KV bytes, so
+   ``auto`` must plan no sharing and serve ``flat``'s tokens and logits;
+8. both LM kernels against their plain versions on the inputs phases 7
+   and 7c launched them with (one per distinct shape; bf16 flash within
+   each query row's limit, which a control -- the plain version with
+   one in-band KV tile left out -- must break; the scan bit for bit),
+   and their times, plain times, bounds and library yardsticks at every
+   shape those phases recorded (the scan's decode step among them); the
+   float32 CUDA-core flash kernel at the largest prefill shape beside
+   them.  The largest shapes' numbers (recurrentgemma-2b's flat prefill)
+   go into the record.
 
 Phases 3-4 (for phase 5) and each of 4c-4h record the inputs of
 ``sig_hash`` and ``seg_count`` as they run (``KernelInputs``: a host
@@ -163,16 +172,16 @@ copy of the first call of each shape) and hold the kernels on them
 afterwards, bit for bit; those launches come after the phase's counts
 are read and are not counted.
 
-Phase 7 also traces one flat prefill and four decode steps with
-``torch.profiler`` and prints the device's busy and idle share and the
-kernels that took most of its time.
+Phases 7 and 7c also trace one flat prefill and four decode steps of
+each model with ``torch.profiler`` and print the device's busy and idle
+share and the kernels that took most of its time.
 
 The last two lines are the ``{"kernels": [...]}`` record -- five routes:
 ``sig_hash``, ``seg_count`` (their launches summed over phases 3-4h),
-``flash_attention`` (bf16, tensor cores;
-launches of phase 7), ``flash_attention_f32`` (float32, CUDA cores;
-launches of phase 7b, its time at the flat-prefill shape) and
-``linear_scan`` -- and the ``{"ok": true, "device": ...}`` line.
+``flash_attention`` (bf16, tensor cores; launches of phases 7 and 7c),
+``flash_attention_f32`` (float32, CUDA cores; launches of the 7b runs,
+its time at the largest prefill shape) and ``linear_scan`` (launches of
+phases 7 and 7c) -- and the ``{"ok": true, "device": ...}`` line.
 Without CUDA, or without the package beside this file, it exits
 non-zero and prints no result.
 """
@@ -242,8 +251,10 @@ LM_LOGIT_STEPS = 4
 # token twice moves the logits by about 3e-4 at this scale
 LM_F32_TOL = 1e-5
 
-# phase 7 traffic (recurrentgemma-2b at full width)
-LM_ARCH = "recurrentgemma-2b"
+# phase 7 traffic, served by each of these at full width: the hybrid
+# recurrentgemma-2b (phase 7), the dense qwen2-0.5b and the SSM
+# mamba2-780m (phase 7c)
+LM_ARCHS = ("recurrentgemma-2b", "qwen2-0.5b", "mamba2-780m")
 LM_REQUESTS = 8
 LM_SHARED = 2048
 LM_OWN = 256
@@ -2438,25 +2449,40 @@ def profile_window(label: str, fn) -> None:
         log(f"  {secs * 1e3:9.3f} ms  {name[:110]}")
 
 
-def lm_serve(dev):
-    """Phase 7.  Returns (launch counts of the run, the recorder)."""
+def lm_layers(cfg) -> str:
+    """The layer kinds of ``cfg`` with their counts, e.g. "18 rglru + 8
+    local"."""
+    return " + ".join(f"{cfg.pattern.count(k)} {k}"
+                      for k in dict.fromkeys(cfg.pattern))
+
+
+def lm_serve(dev, arch: str):
+    """Phase 7 (recurrentgemma-2b) and 7c (qwen2-0.5b, mamba2-780m): the
+    LM serve path of ``arch`` at full width.  Returns (launch counts of
+    the run, the recorder)."""
     import numpy as np
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.models import LM
     from repro_torch.serving import Engine, Request
 
-    cfg = get_arch(LM_ARCH)
+    cfg = get_arch(arch)
+    n_attn = sum(k in ("attn", "local") for k in cfg.pattern)
+    n_rglru = cfg.pattern.count("rglru")
+    n_ssd = cfg.pattern.count("ssd")
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(SEED)
     model = LM(cfg, device=dev, generator=gen)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
-    log(f"lm: {cfg.name}, {cfg.n_layers} layers {cfg.pattern.count('rglru')} "
-        f"rglru + {cfg.pattern.count('local')} local, d {cfg.d_model}, "
-        f"heads {cfg.n_heads}/{cfg.n_kv_heads} x {cfg.resolved_head_dim}, "
-        f"ff {cfg.d_ff}, vocab {cfg.vocab_size}, window {cfg.window}, "
-        f"{cfg.dtype}: {n_params} parameters, "
+    mixer = (f"ssd heads {cfg.ssm_heads} x {cfg.ssm_head_dim}, state "
+             f"{cfg.ssm_state}, chunk {cfg.ssm_chunk}" if n_ssd else
+             f"heads {cfg.n_heads}/{cfg.n_kv_heads} x "
+             f"{cfg.resolved_head_dim}, ff {cfg.d_ff}, window {cfg.window}")
+    log(f"lm: {cfg.name} [{cfg.family}], {cfg.n_layers} layers "
+        f"({lm_layers(cfg)}), d {cfg.d_model}, {mixer}, vocab "
+        f"{cfg.vocab_size}, {cfg.dtype}: {n_params} parameters "
+        f"(n_params {cfg.n_params}), "
         f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB, built in "
         f"{time.perf_counter() - t0:.1f} s")
     rng = np.random.default_rng(SEED)
@@ -2487,7 +2513,7 @@ def lm_serve(dev):
     with Recorder() as rec:
         for policy in ("flat", "auto"):
             serve(policy)
-    log(f"lm warm-up pass (both policies, recorded): "
+    log(f"lm {cfg.name} warm-up pass (both policies, recorded): "
         f"{time.perf_counter() - t0:.1f} s")
 
     reset_launches()
@@ -2503,7 +2529,7 @@ def lm_serve(dev):
         assert bool(torch.isfinite(eng.logits).all()), \
             f"{policy}: non-finite logits"
         extra = ""
-        if plan is not None:
+        if plan is not None and n_attn:
             assert plan.shares and plan.molecule_tokens.shape == \
                 (1, LM_SHARED), (plan.depth_chunks,
                                  plan.molecule_tokens.shape)
@@ -2512,41 +2538,63 @@ def lm_serve(dev):
                      f"savings {plan.savings_pct:.1f}%, molecule "
                      f"prefill {st['molecule_prefill_s']:.4f} s + "
                      f"{length - plan.suffix_start} decode-extend steps")
-        log(f"lm serve {policy} (warm): {LM_REQUESTS} requests x {length} "
-            f"prompt tokens -> {LM_NEW} new each in {secs:.4f} s: prompt "
-            f"phase {st['prefill_s']:.4f} s{extra}, mean decode step "
-            f"{1e3 * sum(st['decode_s']) / len(st['decode_s']):.3f} ms "
+        elif plan is not None:
+            # no KV bytes (an attention-free stack): nothing to share
+            assert not plan.shares and eng._kv_bytes_per_token() == 0, plan
+            extra = ", no sharing planned (0 KV bytes per token)"
+        log(f"lm serve {cfg.name} {policy} (warm): {LM_REQUESTS} requests "
+            f"x {length} prompt tokens -> {LM_NEW} new each in {secs:.4f} "
+            f"s: prompt phase {st['prefill_s']:.4f} s{extra}, mean decode "
+            f"step {1e3 * sum(st['decode_s']) / len(st['decode_s']):.3f} ms "
             f"over {len(st['decode_s'])} steps, peak device memory "
             f"{peak / 2**30:.2f} GiB")
-        results[policy] = (outs, eng.logits, st["prefill_s"])
-    log(f"lm prompt phase auto / flat: "
+        results[policy] = (outs, eng.logits, st["prefill_s"], plan)
+    log(f"lm {cfg.name} prompt phase auto / flat: "
         f"{results['auto'][2] / results['flat'][2]:.2f}")
     launched = read_launches(("flash_attention", "linear_scan"))
     kinds = flash_kernel_launches()
-    for name, n in launched.items():
-        assert n > 0, f"{name} was not launched by the LM serve path"
+    # per timed pass: one prefill per policy (auto's is its molecule's);
+    # the scan also runs in every RG-LRU decode step, auto's
+    # decode-extend steps among them
+    shares = results["auto"][3].shares
+    want = {"flash_attention": 2 * n_attn,
+            "linear_scan": 2 * n_ssd + n_rglru * (
+                2 + 2 * (LM_NEW - 1) + (LM_OWN if shares else 0))}
+    assert launched == want, f"{cfg.name} launched {launched}, not {want}"
     assert kinds == {"tensor_core": launched["flash_attention"],
                      "cuda_core": 0}, f"bf16 prefills launched {kinds}"
-    n_local = cfg.pattern.count("local")
-    n_rglru = cfg.pattern.count("rglru")
-    log(f"lm launches {launched}, flash kernels {kinds} (expected: flash "
-        f"{n_local} per prefill, all tensor-core; scan {n_rglru} per "
-        "prefill and per decode step)")
+    flash_d = {key[0][3] for key in rec.flash}
+    assert flash_d == ({cfg.resolved_head_dim} if n_attn else set()), \
+        flash_d
+    if n_ssd:
+        ssd_shape = (LM_REQUESTS * cfg.ssm_heads, -(-length // cfg.ssm_chunk),
+                     cfg.ssm_state * cfg.ssm_head_dim)
+        assert {key[0] for key in rec.scan} == {ssd_shape}, list(rec.scan)
+    log(f"lm {cfg.name} launches {launched}, flash kernels {kinds} "
+        f"(as counted from the layers: flash {n_attn} per prefill, all "
+        f"tensor-core, head size {sorted(flash_d)}; scan {n_ssd} SSD per "
+        f"prefill at {sorted(k[0] for k in rec.scan)}, {n_rglru} RG-LRU "
+        "per prefill and per decode step)")
 
-    (f_out, f_lg, _), (a_out, a_lg, _) = results["flat"], results["auto"]
+    (f_out, f_lg, _, _), (a_out, a_lg, _, _) = (results["flat"],
+                                                results["auto"])
     delta = float((f_lg[0] - a_lg[0]).abs().max())
     scale = float(f_lg[0].abs().max())
     tol = bf16_steps(scale, LM_LOGIT_STEPS)
     same = sum(x == y for r in range(LM_REQUESTS)
                for x, y in zip(f_out[r], a_out[r]))
     first = sum(f_out[r][0] == a_out[r][0] for r in range(LM_REQUESTS))
-    log(f"lm flat vs auto: next-token logits max |delta| {delta:.4g} "
-        f"(logit scale {scale:.4g}, tolerance {tol:.4g} = {LM_LOGIT_STEPS} "
-        f"bf16 steps); first tokens "
+    log(f"lm {cfg.name} flat vs auto: next-token logits max |delta| "
+        f"{delta:.4g} (logit scale {scale:.4g}, tolerance {tol:.4g} = "
+        f"{LM_LOGIT_STEPS} bf16 steps); first tokens "
         f"agree {first}/{LM_REQUESTS}; generated tokens agree "
         f"{same}/{LM_REQUESTS * LM_NEW} = {same / (LM_REQUESTS * LM_NEW):.3f}")
     assert delta <= tol, \
         f"flat and auto next-token logits differ by {delta}"
+    if not shares:
+        # without a molecule auto runs flat's path: the same tokens
+        assert a_out == f_out and torch.equal(a_lg, f_lg), \
+            "auto without sharing departs from flat"
 
     # where the time goes: one traced flat prefill and four decode steps
     # (after the counts were read, so their launches count nowhere)
@@ -2566,18 +2614,22 @@ def lm_serve(dev):
                              dtype=torch.int32, device=dev)
             cur, cache, _ = eng._decode(cur[:, None], cache, pos)
 
-    profile_window(f"flat prefill ({LM_REQUESTS} x {length})", prefill)
-    profile_window(f"4 decode steps at batch {LM_REQUESTS}", decode)
+    profile_window(f"{cfg.name} flat prefill ({LM_REQUESTS} x {length})",
+                   prefill)
+    profile_window(f"{cfg.name} 4 decode steps at batch {LM_REQUESTS}",
+                   decode)
     return launched, rec
 
 
-def lm_policy_parity_f32(dev) -> dict[str, int]:
+def lm_policy_parity_f32(dev, arch: str) -> dict[str, int]:
     """Phase 7b: ``flat`` against ``auto`` in float32 on the card, through
-    both kernels (the reduced config at head_dim 64, 4 prompts of 48
-    tokens sharing 40, past the window of 32 with a wrap): equal tokens
-    and logits within ``LM_F32_TOL``, flash only as its CUDA-core
-    kernel.  A second decode of the last prompt token must break that
-    limit tenfold, so the check can see it.  Returns the two flash
+    the kernels ``arch``'s layers run (the reduced config at head_dim 64,
+    4 prompts of 48 tokens sharing 40, past recurrentgemma's window of 32
+    with a wrap): equal tokens and logits within ``LM_F32_TOL``, flash
+    only as its CUDA-core kernel.  On a stack with recurrent layers a
+    second decode of the last prompt token must break that limit (RG-LRU
+    tenfold, SSD threefold), so the check can see it (on an
+    attention-only stack it rewrites the same k/v in the same slot).  Returns the two flash
     kernels' launches of the two runs."""
     import numpy as np
     import torch
@@ -2585,7 +2637,9 @@ def lm_policy_parity_f32(dev) -> dict[str, int]:
     from repro_torch.models import LM
     from repro_torch.serving import Engine, Request
 
-    cfg = reduced(get_arch(LM_ARCH), head_dim=64)
+    cfg = reduced(get_arch(arch), head_dim=64)
+    has_kv = any(k in ("attn", "local") for k in cfg.pattern)
+    recurrent = any(k in ("rglru", "ssd") for k in cfg.pattern)
     model = LM(cfg, device=dev,
                generator=torch.Generator(device=dev).manual_seed(SEED))
     rng = np.random.default_rng(SEED)
@@ -2604,11 +2658,16 @@ def lm_policy_parity_f32(dev) -> dict[str, int]:
                 eng.submit(Request(rid=i, tokens=p, max_new=new))
             res[policy] = (eng.run(keep_logits=True), eng.logits)
     kinds = flash_kernel_launches()
-    assert kinds["tensor_core"] == 0 and kinds["cuda_core"] > 0, \
+    scans = read_launches(("linear_scan",))["linear_scan"]
+    assert kinds["tensor_core"] == 0 and (kinds["cuda_core"] > 0) == has_kv, \
         f"float32 prefills launched {kinds}"
+    assert (scans > 0) == recurrent, f"{cfg.name}: {scans} scan launches"
     (f_out, f_lg), (a_out, a_lg) = res["flat"], res["auto"]
     plan = eng.last_plan
-    assert plan.shares and plan.suffix_start == shared, plan.suffix_start
+    if has_kv:
+        assert plan.shares and plan.suffix_start == shared, plan.suffix_start
+    else:
+        assert not plan.shares, plan
     delta = float((f_lg - a_lg).abs().max())
     # the JAX engine's fault 2: decode the last prompt token once more
     _, cache, _ = eng._prefill_shared(toks, plan)
@@ -2616,20 +2675,29 @@ def lm_policy_parity_f32(dev) -> dict[str, int]:
     _, _, twice = eng._decode(torch.as_tensor(
         toks[:, -1:], dtype=torch.int64, device=dev), cache, pos)
     fault = float((twice - f_lg[0]).abs().max())
-    log(f"lm float32 flat vs auto on the card ({cfg.n_layers} layers, d "
-        f"{cfg.d_model}, head_dim 64, window {cfg.window}, {n} x {length} "
-        f"tokens, {new} new): tokens equal {a_out == f_out}, logits max "
-        f"|delta| {delta:.4g} (logit scale {float(f_lg.abs().max()):.4g}, "
-        f"tolerance {LM_F32_TOL}); a second decode of the last prompt token "
-        f"would move them {fault:.4g}; flash kernels {kinds}")
+    log(f"lm {cfg.name} float32 flat vs auto on the card ({lm_layers(cfg)}"
+        f", d {cfg.d_model}, head_dim 64, window {cfg.window}, {n} x "
+        f"{length} tokens, {new} new, sharing {plan.shares}): tokens equal "
+        f"{a_out == f_out}, logits max |delta| {delta:.4g} (logit scale "
+        f"{float(f_lg.abs().max()):.4g}, tolerance {LM_F32_TOL}); a second "
+        f"decode of the last prompt token would move them {fault:.4g}; "
+        f"flash kernels {kinds}, scan {scans}")
     assert a_out == f_out, "float32 flat and auto tokens differ"
     assert delta <= LM_F32_TOL, f"float32 flat/auto logits differ by {delta}"
-    assert fault > 10 * LM_F32_TOL, "the check cannot see a double decode"
-    # the float32 kernel against its plain version on the inputs this
-    # path gave it (after the counts were read)
+    if recurrent:
+        # a second RG-LRU step moves the reduced model's logits by ~4e-4,
+        # a second SSD step by ~5e-5 (float32, on the CPU as on the card)
+        margin = 10 if "rglru" in cfg.pattern else 3
+        assert fault > margin * LM_F32_TOL, \
+            "the check cannot see a double decode"
+    # the float32 kernels against their plain versions on the inputs
+    # this path gave them (after the counts were read)
     for q, k, v, kw in rec.flash.values():
         flash_case(q, k, v, kw, f"float32 path q {tuple(q.shape)} kv "
                                 f"{tuple(k.shape)} {kw}")
+    for x, a, h0 in rec.scan.values():
+        scan_case(x, a, h0, f"float32 path x {tuple(x.shape)} "
+                            f"h0={h0 is not None}")
     return kinds
 
 
@@ -2688,34 +2756,39 @@ def scan_times(x, a, h0) -> dict:
                2 * x.numel() / F32_FLOPS * 1e3)))
 
 
-def lm_path_parity_and_times(rec) -> dict:
-    """Phase 8.  Returns the record fields of both LM kernels at the flat
-    prefill's shape (the largest recorded)."""
+def lm_path_parity_and_times(recs: dict) -> dict:
+    """Phase 8, over the recorders of phases 7 and 7c (by architecture).
+    Returns the record fields of both LM kernels at their largest
+    recorded shape (recurrentgemma-2b's flat prefill)."""
     import torch
 
-    for q, k, v, kw in rec.flash.values():
-        flash_case(q, k, v, kw, f"path q {tuple(q.shape)} kv "
-                                f"{tuple(k.shape)} {q.dtype} {kw}",
-                   control=True)
-    for x, a, h0 in rec.scan.values():
-        scan_case(x, a, h0, f"path x {tuple(x.shape)} {x.dtype} "
-                            f"h0={h0 is not None}")
-    log(f"lm main-path parity: flash q/kv shapes "
-        f"{[(k[0], k[1]) for k in rec.flash]}, scan shapes "
-        f"{[(k[0], 'no h0' if k[2] else 'h0') for k in rec.scan]}; max "
-        f"|delta| flash bf16 {ERR['flash_attention']:.3g}, float32 "
+    for arch, rec in recs.items():
+        for q, k, v, kw in rec.flash.values():
+            flash_case(q, k, v, kw, f"{arch} path q {tuple(q.shape)} kv "
+                                    f"{tuple(k.shape)} {q.dtype} {kw}",
+                       control=True)
+        for x, a, h0 in rec.scan.values():
+            scan_case(x, a, h0, f"{arch} path x {tuple(x.shape)} {x.dtype} "
+                                f"h0={h0 is not None}")
+        log(f"lm main-path parity, {arch}: flash q/kv shapes "
+            f"{[(k[0], k[1]) for k in rec.flash]}, scan shapes "
+            f"{[(k[0], 'no h0' if k[2] else 'h0') for k in rec.scan]}")
+    log(f"lm main-path parity: max |delta| flash bf16 "
+        f"{ERR['flash_attention']:.3g}, float32 "
         f"{ERR['flash_attention_f32']:.3g}, scan {ERR['linear_scan']:.3g}")
 
     # every recorded shape (the flash prefills; the scan's prefills and
-    # its decode step), largest first: the flat prefill's numbers go into
+    # its decode step), largest first: the largest one's numbers go into
     # the record
     by_size = lambda r: -r[0].numel()                          # noqa: E731
-    flash = [flash_times(*r) for r in sorted(rec.flash.values(), key=by_size)]
-    scan = [scan_times(*r) for r in sorted(rec.scan.values(), key=by_size)]
+    flash_in = [r for rec in recs.values() for r in rec.flash.values()]
+    scan_in = [r for rec in recs.values() for r in rec.scan.values()]
+    flash = [flash_times(*r) for r in sorted(flash_in, key=by_size)]
+    scan = [scan_times(*r) for r in sorted(scan_in, key=by_size)]
 
-    # the float32 CUDA-core kernel at the flat prefill's shape, on the same
-    # inputs in float32, beside the tensor-core kernel and SDPA above
-    q, k, v, kw = max(rec.flash.values(), key=lambda r: r[0].numel())
+    # the float32 CUDA-core kernel at the largest prefill shape, on the
+    # same inputs in float32, beside the tensor-core kernel and SDPA above
+    q, k, v, kw = max(flash_in, key=lambda r: r[0].numel())
     q, k, v = q.float(), k.float(), v.float()
     flash_case(q, k, v, kw, f"path q {tuple(q.shape)} kv {tuple(k.shape)} "
                             f"as float32 {kw}")
@@ -2856,17 +2929,26 @@ def main() -> int:
     lm_kernel_parity(dev)
     log(f"lm kernel parity phase: {time.perf_counter() - t0:.1f} s")
 
-    # phase 7
-    t0 = time.perf_counter()
-    lm_launches, rec = lm_serve(dev)
-    totals.update(lm_launches)
-    # the float32 serve path (phase 7b) is the float32 kernel's own path
-    totals["flash_attention_f32"] = lm_policy_parity_f32(dev)["cuda_core"]
-    log(f"lm serve phase: {time.perf_counter() - t0:.1f} s")
+    # phases 7 (the hybrid stack), 7c (the dense and the SSM stack) and
+    # 7b (each in float32, reduced): each path's counts start at 0 and
+    # are summed in after it
+    totals.update(flash_attention=0, linear_scan=0, flash_attention_f32=0)
+    recs = {}
+    for arch in LM_ARCHS:
+        t0 = time.perf_counter()
+        lm_launches, recs[arch] = lm_serve(dev, arch)
+        for name, n in lm_launches.items():
+            totals[name] += n
+        # the float32 serve path is the float32 kernel's own path
+        totals["flash_attention_f32"] += \
+            lm_policy_parity_f32(dev, arch)["cuda_core"]
+        torch.cuda.empty_cache()
+        log(f"lm serve phase, {arch}: {time.perf_counter() - t0:.1f} s")
 
     # phase 8
     t0 = time.perf_counter()
-    times.update(lm_path_parity_and_times(rec))
+    times.update(lm_path_parity_and_times(recs))
+    del recs
     log(f"lm path parity and timing phase: {time.perf_counter() - t0:.1f} s")
 
     # the bf16 serve path launches flash_attention as its tensor-core

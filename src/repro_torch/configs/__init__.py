@@ -1,11 +1,14 @@
 """Config registry: the architectures the port can run (``--arch``)."""
 from __future__ import annotations
 
-from . import recurrentgemma_2b
+from . import (llama3_2_1b, llama3_405b, mamba2_780m, qwen2_0_5b, qwen3_32b,
+               recurrentgemma_2b)
 from .base import ArchConfig, reduced  # noqa: F401
 
 ARCHS: dict[str, ArchConfig] = {
-    m.CONFIG.name: m.CONFIG for m in (recurrentgemma_2b,)
+    m.CONFIG.name: m.CONFIG
+    for m in (qwen2_0_5b, llama3_2_1b, qwen3_32b, llama3_405b, mamba2_780m,
+              recurrentgemma_2b)
 }
 
 

@@ -2,9 +2,12 @@
 
 The port's copy of ``repro/configs/base.py``: the fields the port reads,
 under the same names, and the same :func:`reduced` scaling of them, so
-a configuration here and its JAX twin describe the same network.  The
-MoE, SSD and frontend sizes and the sharding and training-policy fields
-of the JAX schema are left out until a slice reads them.
+a configuration here and its JAX twin describe the same network, and
+the same derived sizes (``homogeneous``, ``d_inner``, ``ssm_heads``,
+``n_params`` ...).  Of the MoE sizes only those ``n_params`` and
+``n_active_params`` read are here; the frontend sizes and the sharding
+and training-policy fields of the JAX schema are left out until a slice
+reads them.
 """
 from __future__ import annotations
 
@@ -33,11 +36,18 @@ class ArchConfig:
     # layer pattern for hybrids: tuple of "attn" | "local" | "rglru" | "ssd"
     # cycled over n_layers; () -> all global attention (or all ssd for ssm)
     layer_pattern: tuple[str, ...] = ()
-    # RG-LRU
+    # SSM (mamba2 / SSD)
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64
+    ssm_chunk: int = 256
     conv_width: int = 4
+    # RG-LRU
     rglru_width: int = 0                # 0 -> d_model
     # what later slices run; LM refuses a config that sets them
     n_experts: int = 0                  # MoE
+    experts_per_token: int = 0
+    moe_d_ff: int = 0                   # per-expert hidden (0 -> d_ff)
     encoder_layers: int = 0             # encoder-decoder
     frontend: Literal["none", "audio_stub", "vision_stub"] = "none"
     # numerics
@@ -60,6 +70,64 @@ class ArchConfig:
             return ("ssd",) * self.n_layers
         return ("attn",) * self.n_layers
 
+    @property
+    def homogeneous(self) -> bool:
+        p = self.pattern
+        return all(t == p[0] for t in p)
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """True if serving cost is sub-quadratic in sequence length (no
+        global-attention layer)."""
+        return all(t in ("ssd", "rglru", "local") for t in self.pattern)
+
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim
+
+    @property
+    def n_params(self) -> int:
+        """Approximate parameter count (embeddings + blocks), the JAX
+        schema's count."""
+        d, f, v = self.d_model, self.d_ff, self.vocab_size
+        hd = self.resolved_head_dim
+        total = v * d * (1 if self.tied_embeddings else 2)
+        for kind in self.pattern:
+            if kind in ("attn", "local"):
+                total += d * hd * (self.n_heads + 2 * self.n_kv_heads)
+                total += self.n_heads * hd * d
+                if self.n_experts:
+                    e_ff = self.moe_d_ff or f
+                    total += d * self.n_experts + \
+                        3 * self.n_experts * d * e_ff
+                else:
+                    total += 3 * d * f
+            elif kind == "ssd":
+                di, ns, hh = self.d_inner, self.ssm_state, self.ssm_heads
+                total += d * (2 * di + 2 * ns + hh) + di * d
+            elif kind == "rglru":
+                w = self.rglru_width or d
+                total += 2 * d * w + w * d + 2 * w * w  # in/gate/out + gates
+                total += 3 * d * f                      # the block's MLP
+        total += self.encoder_layers * (
+            d * hd * (self.n_heads + 2 * self.n_kv_heads)
+            + self.n_heads * hd * d + 3 * d * f)
+        return total
+
+    @property
+    def n_active_params(self) -> int:
+        """Active params per token (MoE: top-k experts only)."""
+        if not self.n_experts:
+            return self.n_params
+        e_ff = self.moe_d_ff or self.d_ff
+        per_layer_unused = 3 * (self.n_experts - self.experts_per_token) \
+            * self.d_model * e_ff
+        return self.n_params - per_layer_unused * self.n_layers
+
 
 def reduced(cfg: ArchConfig, **overrides) -> ArchConfig:
     """A tiny same-family config for CPU tests (the JAX ``reduced``)."""
@@ -72,7 +140,15 @@ def reduced(cfg: ArchConfig, **overrides) -> ArchConfig:
         d_ff=256,
         vocab_size=512,
         head_dim=32,
+        ssm_state=min(cfg.ssm_state, 16) if cfg.ssm_state else 0,
+        ssm_head_dim=32,
+        ssm_chunk=16,
+        n_experts=min(cfg.n_experts, 4) if cfg.n_experts else 0,
+        experts_per_token=min(cfg.experts_per_token, 2)
+        if cfg.experts_per_token else 0,
+        moe_d_ff=64 if cfg.n_experts else 0,
         rglru_width=128 if cfg.rglru_width else 0,
+        encoder_layers=min(cfg.encoder_layers, 2),
         window=min(cfg.window, 32) if cfg.window else None,
         dtype="float32",
         param_dtype="float32",

@@ -10,7 +10,9 @@ therefore the same surrogate ids when they factorize.
     ported = store_from_arrays(list(store.dict._terms), store.spo)
 
 An LM's weights cross as the JAX param tree with numpy leaves; the
-result loads into the port's ``LM`` of the same config:
+result loads into the port's ``LM`` of the same config.  A homogeneous
+stack's tree is layer-stacked in the JAX package (``layers.attn.wq`` of
+shape ``(L, ...)``); it is unstacked into ``layers.<i>.attn.wq``:
 
     tree = jax.tree.map(np.asarray, repro_lm.init(key))   # reference
     model = LM(cfg, device="cpu")
@@ -54,13 +56,32 @@ def _to_tensor(arr) -> torch.Tensor:
     return torch.from_numpy(np.array(arr))
 
 
+def unstack_layers(stacked: dict, n_layers: int) -> list[dict]:
+    """A layer-stacked tree (every leaf ``(L, ...)``) as a list of ``L``
+    per-layer trees of numpy leaves; raises on a leaf without that
+    leading dimension."""
+    def take(node, i, path):
+        if isinstance(node, dict):
+            return {k: take(v, i, f"{path}.{k}") for k, v in node.items()}
+        arr = np.asarray(node)
+        if arr.ndim == 0 or arr.shape[0] != n_layers:
+            raise ValueError(f"{path}: a layer-stacked leaf needs a leading "
+                             f"dimension of {n_layers}, got {arr.shape}")
+        return arr[i]
+    return [take(stacked, i, "layers") for i in range(n_layers)]
+
+
 def lm_params_from_jax(cfg, tree) -> dict[str, torch.Tensor]:
     """The JAX ``LM.param_specs`` tree of ``cfg`` (numpy leaves) as the
-    port's ``state_dict``: ``{"embed": ..., "layers.0.rglru.w_x": ...}``.
-    Raises if a name or shape differs from the port's ``LM`` of ``cfg``."""
+    port's ``state_dict``: ``{"embed": ..., "layers.0.rglru.w_x": ...}``,
+    a layer-stacked ``layers`` dict unstacked first.  Raises if a name or
+    shape differs from the port's ``LM`` of ``cfg``."""
     from .models.common import torch_dtype
     from .models.lm import LM
     specs = LM.param_specs(cfg)
+    if isinstance(tree.get("layers"), dict):
+        tree = {**tree, "layers": unstack_layers(tree["layers"],
+                                                 cfg.n_layers)}
     out = {name: _to_tensor(leaf) for name, leaf in _flatten(tree)}
     if set(out) != set(specs):
         raise ValueError(f"param names differ: missing "

@@ -6,12 +6,15 @@ a system prompt get the shared prefix prefilled once per distinct prefix
 (compact molecule), per-request suffixes attach via the instanceOf
 pointer, and every prefix policy must produce the same tokens.
 
-    python -m repro_torch.launch.serve --arch recurrentgemma-2b \\
+    python -m repro_torch.launch.serve --arch mamba2-780m \\
         --reduced --device cpu             # the plain-torch path
-    python -m repro_torch.launch.serve     # full width, on the card
+    python -m repro_torch.launch.serve     # qwen2-0.5b, full width, on the card
 
-The weights are random, drawn from a ``torch.Generator`` seeded with
-``--seed``.  ``--reduced`` is the tiny float32 config at head_dim 64,
+``--arch`` takes every config of ``configs.ARCHS`` (the hybrid
+recurrentgemma-2b, the dense qwen2-0.5b, llama3.2-1b, qwen3-32b and
+llama3-405b, the SSM mamba2-780m) and defaults to qwen2-0.5b, as the JAX
+launcher does.  The weights are random, drawn from a ``torch.Generator``
+seeded with ``--seed``.  ``--reduced`` is the tiny float32 config at head_dim 64,
 the flash kernel's smallest build, so it runs on the card and on the
 CPU alike.  In float32 (``--reduced``) the policies' tokens are
 asserted identical; in bf16 an argmax over near-tied logits may
@@ -529,7 +532,7 @@ def serve_online(n_batches: int = 20, *, n_observations: int = 80,
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--arch", default="recurrentgemma-2b",
+    ap.add_argument("--arch", default="qwen2-0.5b",
                     choices=sorted(ARCHS))
     ap.add_argument("--reduced", action="store_true",
                     help="the tiny float32 same-family config (head_dim "
@@ -600,6 +603,9 @@ def main(argv=None) -> dict:
         else get_arch(args.arch)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     model = LM(cfg, device=dev, generator=gen)
+    print(f"lm {cfg.name}{' (reduced)' if args.reduced else ''}: "
+          f"{cfg.family}, {cfg.n_layers} layers, d {cfg.d_model}, "
+          f"{cfg.dtype}, on {dev}")
     rng = np.random.default_rng(args.seed)
 
     shared_len = int(args.prompt_len * args.shared_frac)

@@ -1,2 +1,2 @@
-"""The LM substrate: blocks (attention, MLP, RG-LRU) and the ``LM``."""
+"""The LM substrate: blocks (attention, MLP, RG-LRU, SSD) and the ``LM``."""
 from .lm import LM  # noqa: F401

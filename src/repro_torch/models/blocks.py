@@ -1,17 +1,19 @@
-"""Layer blocks of the hybrid (RG-LRU + local attention) stack.
+"""Layer blocks of the hybrid, dense and SSM stacks.
 
-The port's copy of the parts of ``repro/models/blocks.py`` that
-recurrentgemma needs: GQA attention (rope, ``qkv_bias``, ``qk_norm``,
-causal with an optional window) with its prefill and ring-buffer decode
-paths, the gated MLP, and the RG-LRU recurrent block with its causal
-conv.  Each block is a :class:`~.common.SpecModule` whose parameters
-carry the JAX names (``wq``, ``w_gate``, ``lam`` ...); norms, rope and
-the conv are plain functions on tensors.  MoE and SSD wait for a later
-slice.
+The port's copy of the parts of ``repro/models/blocks.py`` that the
+hybrid (recurrentgemma), dense (qwen2, llama, qwen3) and SSM (mamba2)
+families need: GQA attention (rope, ``qkv_bias``, ``qk_norm``, causal
+and global or windowed) with its prefill and decode paths, the gated
+MLP, the RG-LRU recurrent block with its causal conv, and the mamba2
+SSD mixer (chunked state-space duality, its inter-chunk recurrence on
+``linear_scan``).  Each block is a :class:`~.common.SpecModule` whose
+parameters carry the JAX names (``wq``, ``w_gate``, ``lam``, ``w_in``
+...); norms, rope and the conv are plain functions on tensors.  MoE
+waits for a later slice.
 
 Every mixer has two modes: prefill (full sequence, optionally emitting
 the decode cache) and decode (one token against the cache).  Decode
-updates the attention cache in place -- the ring buffer is the largest
+updates the attention cache in place -- the KV buffer is the largest
 state of a step and is never copied -- and returns it.
 """
 from __future__ import annotations
@@ -86,6 +88,17 @@ def attn_prefill_cache(k: torch.Tensor, v: torch.Tensor,
     cv[:, :, slots] = vh[:, :, first:]
     cpos[:, slots] = positions[:, first:].to(torch.int32)
     return {"k": ck, "v": cv, "pos": cpos}
+
+
+def attn_cache_specs(cfg, batch: int, cache_len: int, dtype: str,
+                     window: int | None = None) -> dict[str, TSpec]:
+    """The decode cache :func:`attn_prefill_cache` builds: a global layer
+    keeps ``cache_len`` slots, a windowed one ``min(cache_len, window)``."""
+    hd, kv = cfg.resolved_head_dim, cfg.n_kv_heads
+    s = min(cache_len, window) if window else cache_len
+    return {"k": TSpec((batch, kv, s, hd), dtype, init="zeros"),
+            "v": TSpec((batch, kv, s, hd), dtype, init="zeros"),
+            "pos": TSpec((batch, s), "int32", init="zeros")}
 
 
 class Attention(SpecModule):
@@ -217,6 +230,13 @@ def causal_conv(x: torch.Tensor, kernel: torch.Tensor,
     return out, new_state
 
 
+def rglru_cache_specs(cfg, batch: int) -> dict[str, TSpec]:
+    w = cfg.rglru_width or cfg.d_model
+    return {"state": TSpec((batch, w), "float32", init="zeros"),
+            "conv": TSpec((batch, cfg.conv_width - 1, w), "float32",
+                          init="zeros")}
+
+
 class RGLRU(SpecModule):
     """Griffin recurrent block: conv -> RG-LRU, gated by a GeLU branch."""
 
@@ -242,3 +262,148 @@ class RGLRU(SpecModule):
         new_cache = ({"state": last, "conv": new_conv}
                      if (cache is not None or return_cache) else None)
         return out, new_cache
+
+
+# ---------------------------------------------------------------------------
+# mamba2 SSD (chunked state-space duality)
+# ---------------------------------------------------------------------------
+
+def ssd_specs(cfg) -> dict[str, TSpec]:
+    d, pd = cfg.d_model, cfg.param_dtype
+    di, ns, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    return {
+        "w_in": TSpec((d, 2 * di + 2 * ns + h), pd),
+        "conv": TSpec((cfg.conv_width, di + 2 * ns), "float32"),
+        "dt_bias": TSpec((h,), "float32", init="zeros"),
+        "a_log": TSpec((h,), "float32", init="zeros"),
+        "d_skip": TSpec((h,), "float32", init="zeros"),
+        "norm": TSpec((di,), "float32", init="zeros"),
+        "w_out": TSpec((di, d), pd, init="scaled"),
+        "ln": TSpec((d,), "float32", init="zeros"),
+    }
+
+
+def ssd_cache_specs(cfg, batch: int) -> dict[str, TSpec]:
+    """The decode cache: the (H, N, P) state per request in float32, and
+    the conv's last W-1 inputs (the prefill leaves them in the model's
+    type, as the JAX package does)."""
+    di, ns = cfg.d_inner, cfg.ssm_state
+    return {"state": TSpec((batch, cfg.ssm_heads, ns, cfg.ssm_head_dim),
+                           "float32", init="zeros"),
+            "conv": TSpec((batch, cfg.conv_width - 1, di + 2 * ns),
+                          "float32", init="zeros")}
+
+
+def ssd_split(cfg, zxbcdt: torch.Tensor):
+    """(z, x, B, C, dt) of the fused input projection."""
+    di, ns = cfg.d_inner, cfg.ssm_state
+    return torch.split(zxbcdt, [di, di, ns, ns, cfg.ssm_heads], dim=-1)
+
+
+def ssd_chunked(cfg, x: torch.Tensor, da: torch.Tensor, bb: torch.Tensor,
+                cc: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD: intra-chunk quadratic + inter-chunk linear scan.
+
+    x: (B, T, H, P) float32 (already dt-scaled); da: (B, T, H) log-decay;
+    bb, cc: (B, T, N).  Returns (y (B, T, H, P), last state (B, H, N, P)).
+    A T that is not a multiple of the chunk is padded with no-op steps
+    (x = 0: no state update; da = 0: decay 1).  The recurrence over the
+    chunks runs on ``linear_scan`` at (B*H, n_chunks, N*P); the
+    intra-chunk products are plain torch, as they are plain XLA in the
+    JAX package.
+    """
+    b, t, h, hp = x.shape
+    ns = bb.shape[-1]
+    lc = min(cfg.ssm_chunk, t)
+    t_orig = t
+    if t % lc:
+        pad = lc - t % lc
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        da = F.pad(da, (0, 0, 0, pad))
+        bb = F.pad(bb, (0, 0, 0, pad))
+        cc = F.pad(cc, (0, 0, 0, pad))
+        t += pad
+    nc = t // lc
+    xr = x.reshape(b, nc, lc, h, hp)
+    br = bb.reshape(b, nc, lc, ns)
+    cr = cc.reshape(b, nc, lc, ns)
+    cs = torch.cumsum(da.reshape(b, nc, lc, h), dim=2)     # (B,nc,Lc,H)
+
+    # intra-chunk: y[l] += sum_{s<=l} exp(cs[l]-cs[s]) (C_l.B_s) x_s.  The
+    # (B, nc, Lc, Lc, H) decay is the largest tensor of the layer: it is
+    # built once and weighted in place
+    gb = torch.einsum("bcln,bcsn->bcls", cr, br)           # (B,nc,Lc,Lc)
+    decay = (cs[:, :, :, None, :] - cs[:, :, None, :, :]).exp_()
+    upper = ~torch.tril(torch.ones((lc, lc), dtype=torch.bool,
+                                   device=x.device))
+    decay.masked_fill_(upper[None, None, :, :, None], 0.0)
+    decay.mul_(gb[..., None])
+    y = torch.einsum("bclsh,bcshp->bclhp", decay, xr)
+    del decay, gb
+
+    # chunk states: S_c = sum_s exp(cs_last - cs_s) B_s (x) x_s
+    seg = torch.exp(cs[:, :, -1:, :] - cs)                 # (B,nc,Lc,H)
+    states = torch.einsum("bcsn,bcshp->bchnp", br, xr * seg[..., None])
+
+    # the recurrence over chunks: the chunk decay repeated over N*P
+    chunk_decay = torch.exp(cs[:, :, -1, :])               # (B,nc,H)
+    a_flat = chunk_decay.permute(0, 2, 1).reshape(b * h, nc, 1).expand(
+        b * h, nc, ns * hp).contiguous()
+    s_flat = states.permute(0, 2, 1, 3, 4).reshape(
+        b * h, nc, ns * hp).contiguous()
+    all_states, last = kops.linear_scan(s_flat, a_flat)
+    # the states *entering* each chunk: shifted right by one
+    prev = torch.cat([torch.zeros_like(all_states[:, :1]),
+                      all_states[:, :-1]], dim=1)
+    prev = prev.reshape(b, h, nc, ns, hp).permute(0, 2, 1, 3, 4)
+
+    # inter-chunk contribution: C_l . exp(cs_l) S_prev
+    y_off = torch.einsum("bcln,bchnp->bclhp", cr, prev) * \
+        torch.exp(cs)[..., None]
+    y = (y + y_off).reshape(b, t, h, hp)[:, :t_orig]
+    return y, last.reshape(b, h, ns, hp)
+
+
+class SSD(SpecModule):
+    """The mamba2 mixer: fused in-projection, causal conv over (x, B, C),
+    the SSD recurrence, a per-head skip, a gated RMS norm."""
+
+    def __init__(self, cfg, device):
+        super().__init__(ssd_specs(cfg), device)
+        self.cfg = cfg
+
+    def forward(self, x: torch.Tensor, *, cache: dict | None = None,
+                return_cache: bool = False):
+        """Returns (out, new_cache).  With ``cache`` (decode) T must be 1:
+        the state advances one step, in plain torch."""
+        cfg = self.cfg
+        b, t, _ = x.shape
+        di, ns = cfg.d_inner, cfg.ssm_state
+        h, hp = cfg.ssm_heads, cfg.ssm_head_dim
+        if cache is not None and t != 1:
+            raise ValueError(f"SSD decode takes one token, got T={t}")
+        z, xin, bb, cc, dt = ssd_split(cfg, x @ self.w_in.to(x.dtype))
+        conv_out, new_conv = causal_conv(
+            torch.cat([xin, bb, cc], dim=-1), self.conv,
+            cache["conv"] if cache is not None else None)
+        conv_out = F.silu(conv_out)
+        xin = conv_out[..., :di].reshape(b, t, h, hp)
+        bb = conv_out[..., di:di + ns].float()
+        cc = conv_out[..., di + ns:].float()
+        dt = F.softplus(dt.float() + self.dt_bias)             # (B,T,H)
+        da = dt * -torch.exp(self.a_log)                       # log decay
+        xdt = xin.float() * dt[..., None]
+        if cache is not None:                                  # one step
+            upd = torch.einsum("bn,bhp->bhnp", bb[:, 0], xdt[:, 0])
+            state = torch.exp(da[:, 0])[..., None, None] * cache["state"] \
+                + upd
+            y = torch.einsum("bn,bhnp->bhp", cc[:, 0], state)[:, None]
+            new_cache = {"state": state, "conv": new_conv}
+        else:
+            y, last = ssd_chunked(cfg, xdt, da, bb, cc)
+            new_cache = ({"state": last, "conv": new_conv}
+                         if return_cache else None)
+        y = y + xdt * self.d_skip[..., None]                  # per-head skip
+        y = y.reshape(b, t, di).to(x.dtype)
+        y = rms_norm(y, self.norm) * F.silu(z)
+        return y @ self.w_out.to(x.dtype), new_cache

@@ -1,13 +1,18 @@
-"""LM assembly for the hybrid stack: embed, per-layer blocks, tied head.
+"""LM assembly for the hybrid, dense and SSM stacks: embed, per-layer
+blocks, head.
 
-The port's copy of the heterogeneous (unrolled) path of
-``repro/models/lm.py``: one :class:`Layer` per entry of ``cfg.pattern``
-(``local``/``attn`` -> attention + MLP, ``rglru`` -> RG-LRU + MLP), two
-entry points -- :meth:`LM.prefill` (builds the decode cache) and
-:meth:`LM.decode_step` (one token) -- and caches as a per-layer list of
-dicts whose tensors all have batch on axis 0.  The layer-stacked
-homogeneous stacks, MoE, SSD, the whisper encoder and the vision stub
-wait for later slices and raise ``NotImplementedError``.
+The port's copy of ``repro/models/lm.py`` for the decoder-only families
+it runs: one :class:`Layer` per entry of ``cfg.pattern`` (``local``/
+``attn`` -> attention + MLP, ``rglru`` -> RG-LRU + MLP, ``ssd`` -> the
+mamba2 mixer alone), two entry points -- :meth:`LM.prefill` (builds the
+decode cache) and :meth:`LM.decode_step` (one token) -- and caches as a
+per-layer list of dicts whose tensors all have batch on axis 0.  The
+JAX package scans a homogeneous stack (dense, SSM) over a layer-stacked
+param tree and unrolls a heterogeneous one; here both are an
+``nn.ModuleList`` of layers, named ``layers.<i>.<block>.<name>``
+(``convert.lm_params_from_jax`` unstacks the JAX tree).  MoE, the
+whisper encoder, the vision stub and learned positions wait for later
+slices and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -21,17 +26,21 @@ from . import blocks
 from .blocks import Ctx
 from .common import SpecModule, TSpec, init_from_specs, rms_norm, torch_dtype
 
-_KINDS = ("attn", "local", "rglru")
+# each layer kind's blocks, mixer first, and their modules
+_LAYER_BLOCKS = {"attn": ("attn", "mlp"), "local": ("attn", "mlp"),
+                 "rglru": ("rglru", "mlp"), "ssd": ("ssd",)}
+_BLOCKS = {"attn": (blocks.Attention, blocks.attn_specs),
+           "mlp": (blocks.MLP, blocks.mlp_specs),
+           "rglru": (blocks.RGLRU, blocks.rglru_specs),
+           "ssd": (blocks.SSD, blocks.ssd_specs)}
 
 
 def check_supported(cfg) -> None:
-    """Raise ``NotImplementedError`` for what this slice cannot run."""
+    """Raise ``NotImplementedError`` for what the port cannot run yet."""
     missing = []
-    if cfg.family != "hybrid":
-        missing.append(f"family {cfg.family!r} (the port runs the hybrid "
-                       "RG-LRU + local-attention stack)")
-    if any(k not in _KINDS for k in cfg.pattern):
-        missing.append(f"layer kinds {sorted(set(cfg.pattern) - set(_KINDS))}")
+    if any(k not in _LAYER_BLOCKS for k in cfg.pattern):
+        missing.append(f"layer kinds "
+                       f"{sorted(set(cfg.pattern) - set(_LAYER_BLOCKS))}")
     if cfg.n_experts:
         missing.append("MoE")
     if cfg.encoder_layers or cfg.frontend != "none":
@@ -44,43 +53,51 @@ def check_supported(cfg) -> None:
             "the port's queue)")
 
 
+def _layer_specs(cfg, kind: str) -> dict[str, dict[str, TSpec]]:
+    return {blk: _BLOCKS[blk][1](cfg) for blk in _LAYER_BLOCKS[kind]}
+
+
+def _layer_cache_specs(cfg, kind: str, batch: int,
+                       cache_len: int) -> dict[str, dict[str, TSpec]]:
+    if kind in ("attn", "local"):
+        return {"attn": blocks.attn_cache_specs(
+            cfg, batch, cache_len, cfg.dtype,
+            window=cfg.window if kind == "local" else None)}
+    if kind == "ssd":
+        return {"ssd": blocks.ssd_cache_specs(cfg, batch)}
+    return {"rglru": blocks.rglru_cache_specs(cfg, batch)}
+
+
 class Layer(nn.Module):
-    """One residual block: pre-norm mixer, then pre-norm MLP."""
+    """One residual block: pre-norm mixer, then (but for ``ssd``)
+    pre-norm MLP."""
 
     def __init__(self, cfg, kind: str, device):
         super().__init__()
-        self.kind = kind
+        self.mixer, *rest = _LAYER_BLOCKS[kind]
         self.window = cfg.window if kind == "local" else None
-        if kind == "rglru":
-            self.rglru = blocks.RGLRU(cfg, device)
-        else:
-            self.attn = blocks.Attention(cfg, device)
-        self.mlp = blocks.MLP(cfg, device)
+        for blk in (self.mixer, *rest):
+            self.add_module(blk, _BLOCKS[blk][0](cfg, device))
 
     def forward(self, ctx: Ctx, x, positions, *, cache=None,
                 return_cache=False):
         """Returns (x, new_cache)."""
-        new_cache = {}
-        if self.kind == "rglru":
-            h = rms_norm(x, self.rglru.ln)
-            out, nc = self.rglru(h, cache=cache["rglru"] if cache else None,
-                                 return_cache=return_cache)
-            if nc is not None:
-                new_cache["rglru"] = nc
+        mixer = getattr(self, self.mixer)
+        h = rms_norm(x, mixer.ln)
+        kw = dict(cache=cache[self.mixer] if cache else None,
+                  return_cache=return_cache)
+        if self.mixer == "attn":
+            out, nc = mixer(ctx, h, positions, window=self.window, **kw)
         else:
-            h = rms_norm(x, self.attn.ln)
-            out, nc = self.attn(ctx, h, positions, window=self.window,
-                                cache=cache["attn"] if cache else None,
-                                return_cache=return_cache)
-            if nc is not None:
-                new_cache["attn"] = nc
+            out, nc = mixer(h, **kw)
         x = x + out
-        x = x + self.mlp(rms_norm(x, self.mlp.ln))
-        return x, new_cache
+        if self.mixer != "ssd":
+            x = x + self.mlp(rms_norm(x, self.mlp.ln))
+        return x, ({} if nc is None else {self.mixer: nc})
 
 
 class LM(SpecModule):
-    """The hybrid LM.  Parameters carry the JAX tree's names
+    """The decoder-only LM.  Parameters carry the JAX tree's names
     (``embed``, ``final_ln``, ``layers.<i>.<block>.<name>``).
 
     ``device`` defaults to ``"cuda"`` and raises without a card; pass
@@ -116,12 +133,15 @@ class LM(SpecModule):
         check_supported(cfg)
         out = dict(cls.top_specs(cfg))
         for i, kind in enumerate(cfg.pattern):
-            mixer = (("rglru", blocks.rglru_specs(cfg)) if kind == "rglru"
-                     else ("attn", blocks.attn_specs(cfg)))
-            for blk, specs in (mixer, ("mlp", blocks.mlp_specs(cfg))):
+            for blk, specs in _layer_specs(cfg, kind).items():
                 for name, s in specs.items():
                     out[f"layers.{i}.{blk}.{name}"] = s
         return out
+
+    def cache_specs(self, batch: int, cache_len: int) -> list[dict]:
+        """The decode cache :meth:`prefill` returns, layer by layer."""
+        return [_layer_cache_specs(self.cfg, k, batch, cache_len)
+                for k in self.cfg.pattern]
 
     # -- embedding / head --------------------------------------------------
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:

@@ -196,12 +196,29 @@ def test_generator_init_is_seeded_and_follows_the_specs():
 
 
 def test_unported_configs_raise_not_implemented():
+    """What the port still refuses: MoE, the whisper encoder, the vision
+    stub, learned positions, an unknown layer kind (the dense and SSM
+    stacks it refused before now run: ``test_torch_dense.py``,
+    ``test_torch_ssd.py``)."""
     cfg = t_reduced(t_get_arch("recurrentgemma-2b"))
-    for bad in (dataclasses.replace(cfg, family="dense", layer_pattern=()),
-                dataclasses.replace(cfg, layer_pattern=("ssd", "local")),
-                dataclasses.replace(cfg, n_experts=4)):
+    dense = t_reduced(t_get_arch("qwen2-0.5b"))
+    for bad in (dataclasses.replace(dense, family="moe", n_experts=4,
+                                    experts_per_token=2),
+                dataclasses.replace(dense, family="audio", encoder_layers=2,
+                                    frontend="audio_stub", rope_theta=0.0),
+                dataclasses.replace(dense, family="vlm",
+                                    frontend="vision_stub"),
+                dataclasses.replace(dense, rope_theta=0.0),
+                dataclasses.replace(cfg, layer_pattern=("moe", "local"))):
         with pytest.raises(NotImplementedError):
             LM(bad, device="cpu")
+        with pytest.raises(NotImplementedError):
+            LM.param_specs(bad)
+    for ok in (dataclasses.replace(cfg, family="dense", layer_pattern=()),
+               dataclasses.replace(cfg, layer_pattern=("ssd", "local"),
+                                   ssm_state=16, ssm_head_dim=32,
+                                   ssm_chunk=16)):
+        LM(ok, device="cpu")
 
 
 def test_lm_params_from_jax_rejects_foreign_trees():
