@@ -132,32 +132,59 @@ Phases, each an assertion (any failure exits non-zero):
    signature written);
 6. kernel parity: ``flash_attention`` and ``linear_scan`` against their
    plain torch versions on the card over random inputs (bf16 and
-   float32, ragged T and S, T < S, GQA groups 1/2/10, D 64/256, causal
-   or not, windows, fully masked rows; the scan at T = 1 with and
-   without h0), within the tolerances below;
+   float32, ragged T and S, T < S, GQA groups 1/2/4/6/8/10/16, D 64/128/256,
+   causal or not, windows, fully masked rows; the scan at T = 1 with
+   and without h0), within the tolerances below;
 7. the LM serve path at full width: recurrentgemma-2b (26 layers, d 2560,
    vocab 256000, bf16, seeded random weights on the card) behind
    ``serving.Engine``, 8 requests of 2304 tokens (a shared 2048-token
    system prompt + 256 of their own), 16 new tokens each, under the
-   ``flat`` and the ``auto`` policy, timed after an untimed pass of
-   both (which records the kernels' inputs for phase 8); both LM
-   kernels must launch (flash only as its bf16 tensor-core kernel), as
-   many times as the layers call them, every logit be finite, and the
-   next-token logits of the two policies agree; then (7b) the two
+   ``flat`` and the ``auto`` policy, ``flat`` timed after an untimed
+   pass and ``auto`` on its first (both record the kernels' inputs for
+   phase 8); both LM kernels must launch (flash only as its bf16
+   tensor-core kernel), as many times as the layers call them, every
+   logit be finite, and the next-token logits of the two policies
+   agree; then (7b) the two
    policies again in float32 on a reduced config (flash only as its
    float32 CUDA-core kernel), where they must agree to float32 rounding
    (tight enough to see a last prompt token decoded twice), and the
    float32 kernels against their plain versions on the inputs that path
    gave them;
-7c. the same traffic (and its 7b) through the homogeneous stacks:
-   qwen2-0.5b (24 layers of global GQA attention, d 896, 14/2 heads x
-   64, vocab 151936: the bf16 flash kernel at head size 64, causal, no
-   window, and no scan) and mamba2-780m (48 SSD layers, d 1536, 48 heads
+7c. the same traffic (and its 7b) through the homogeneous stacks at
+   their published width, depth cut to a third: qwen2-0.5b (8 of its 24
+   layers of global GQA attention, d 896, 14/2 heads x 64, vocab
+   151936: the bf16 flash kernel at head size 64, causal, no window,
+   and no scan) and mamba2-780m (16 of its 48 SSD layers, d 1536, 48 heads
    x 64, state 128: ``linear_scan`` as SSD's inter-chunk recurrence at
    (8 x 48, 9, 128 x 64), and no flash).  mamba2 holds no KV bytes, so
    ``auto`` must plan no sharing and serve ``flat``'s tokens and logits;
+7d. the same traffic (and its 7b) through the MoE stack
+   moonshot-v1-16b-a3b at its published width (48 layers of attention,
+   16 heads x 128, and a dropless MoE of 64 experts, top-6, ff 1408;
+   51.6 GiB of bf16 weights): the bf16 flash kernel at head size 128,
+   the expert-sorted GEMMs on the host-read group sizes in prefill and
+   every expert batched in decode; the peak device memory printed for
+   each policy;
+7e. whisper-medium (24 + 24 layers, d 1024, 16 heads x 64, learned
+   positions) and internvl2-2b (24 layers, 16/8 heads x 128) at full
+   width through ``serve_step`` with seeded frontend embeddings (8 x
+   1500 frames of 30 s of audio before a 224-token prompt; 8 x 256
+   patches before phase 7's 2304 text tokens), 16 new tokens: flash
+   launched as its bf16 kernel by the encoder (non-causal, S = 1500),
+   every self-attention prefill and every cross-attention (T = 224 in
+   prefill, T = 1 in each decode step), every logit finite, and a
+   prefill of T - 1 tokens plus one decode step within 4 bf16 steps of
+   a prefill of T; the same in float32 on the reduced configs within
+   1e-5, flash as its CUDA-core kernel;
+7f. every config of ``ARCHS`` at its published width, cut to 2 layers
+   (2 encoder layers; recurrentgemma keeps its 3-layer pattern): a
+   128-token prefill and one decode step at batch 1, every logit
+   finite, flash launched at the config's head size (64, 128 or 256)
+   by its attention layers, the scan by its recurrent ones -- the only
+   run on the card of qwen3-32b, llama3-405b and dbrx-132b, and of GQA
+   groups 4, 6, 8 and 16 on a served path;
 8. both LM kernels against their plain versions on the inputs phases 7
-   and 7c launched them with (one per distinct shape; bf16 flash within
+   and 7c-7f launched them with (one per distinct shape; bf16 flash within
    each query row's limit, which a control -- the plain version with
    one in-band KV tile left out -- must break; the scan bit for bit),
    and their times, plain times, bounds and library yardsticks at every
@@ -172,22 +199,24 @@ copy of the first call of each shape) and hold the kernels on them
 afterwards, bit for bit; those launches come after the phase's counts
 are read and are not counted.
 
-Phases 7 and 7c also trace one flat prefill and four decode steps of
-each model with ``torch.profiler`` and print the device's busy and idle
-share and the kernels that took most of its time.
+Phases 7 and 7c-7e also trace one flat prefill and four decode steps
+of each model with ``torch.profiler`` and print the device's busy and
+idle share and the kernels that took most of its time.
 
 The last two lines are the ``{"kernels": [...]}`` record -- five routes:
 ``sig_hash``, ``seg_count`` (their launches summed over phases 3-4h),
-``flash_attention`` (bf16, tensor cores; launches of phases 7 and 7c),
-``flash_attention_f32`` (float32, CUDA cores; launches of the 7b runs,
-its time at the largest prefill shape) and ``linear_scan`` (launches of
-phases 7 and 7c) -- and the ``{"ok": true, "device": ...}`` line.
+``flash_attention`` (bf16, tensor cores; launches of phases 7 and
+7c-7f), ``flash_attention_f32`` (float32, CUDA cores; launches of the
+7b runs and 7e's float32 checks, its time at the largest prefill shape)
+and ``linear_scan`` (launches of phases 7, 7c and 7f) -- and the
+``{"ok": true, "device": ...}`` line.
 Without CUDA, or without the package beside this file, it exits
 non-zero and prints no result.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import hashlib
 import json
 import math
@@ -253,8 +282,23 @@ LM_F32_TOL = 1e-5
 
 # phase 7 traffic, served by each of these at full width: the hybrid
 # recurrentgemma-2b (phase 7), the dense qwen2-0.5b and the SSM
-# mamba2-780m (phase 7c)
-LM_ARCHS = ("recurrentgemma-2b", "qwen2-0.5b", "mamba2-780m")
+# mamba2-780m (phase 7c), the MoE moonshot-v1-16b-a3b (phase 7d)
+LM_ARCHS = ("recurrentgemma-2b", "qwen2-0.5b", "mamba2-780m",
+            "moonshot-v1-16b-a3b")
+# phase 7c's stacks, depth cut to a third (24 -> 8, 48 -> 16 layers) to
+# keep the script near 1100 s (the time budget's second cut, PERF.md §4)
+LM_DEPTH = {"qwen2-0.5b": 8, "mamba2-780m": 16}
+# phase 7e: the frontend stubs through serve_step at full width.  whisper
+# decodes after a 224-token prompt (Whisper's prompt limit, half its
+# 448-token context) over 30 s of audio (1500 frames); internvl2 reads
+# 256 patches before phase 7's 2304 text tokens
+STUB_ARCHS = ("whisper-medium", "internvl2-2b")
+WHISPER_PROMPT = 224
+# phase 7f: every config at its published width, depth cut to this many
+# layers (a hybrid keeps one whole layer pattern, so it has attention),
+# a prefill of this many tokens and one decode step at batch 1
+SWEEP_LAYERS = 2
+SWEEP_TOKENS = 128
 LM_REQUESTS = 8
 LM_SHARED = 2048
 LM_OWN = 256
@@ -2337,7 +2381,16 @@ FLASH_CASES = [(2, 4, 4, 64, 64, 64, True, None),        # group 1
                (1, 10, 1, 300, 1000, 256, True, 128),    # group 10, T < S
                (1, 4, 2, 37, 130, 64, False, 40),        # window, no causal
                (1, 2, 1, 70, 20, 64, True, None),        # T > S: masked rows
-               (2, 10, 1, 333, 333, 256, True, 100)]     # ragged, window
+               (2, 10, 1, 333, 333, 256, True, 100),     # ragged, window
+               (2, 4, 4, 64, 64, 128, True, None),       # D 128, group 1
+               (2, 4, 2, 77, 77, 128, False, None),      # group 2, ragged
+               (1, 4, 2, 100, 300, 128, True, None),     # T < S
+               (1, 4, 4, 130, 70, 128, False, 40),       # T > S, window
+               (2, 4, 2, 201, 333, 128, True, None),     # ragged T < S
+               (1, 16, 4, 96, 160, 128, True, None),     # group 4, T < S
+               (1, 12, 2, 65, 129, 128, False, None),    # group 6
+               (1, 16, 2, 100, 100, 128, True, None),    # group 8
+               (1, 16, 1, 77, 200, 128, False, None)]    # group 16
 # (B, T, D, h0)
 SCAN_CASES = [(8, 1, 2560, True), (8, 1, 2560, False), (3, 77, 300, True),
               (2, 1000, 129, False), (1, 2048, 2560, False)]
@@ -2456,35 +2509,57 @@ def lm_layers(cfg) -> str:
                       for k in dict.fromkeys(cfg.pattern))
 
 
-def lm_serve(dev, arch: str):
-    """Phase 7 (recurrentgemma-2b) and 7c (qwen2-0.5b, mamba2-780m): the
-    LM serve path of ``arch`` at full width.  Returns (launch counts of
-    the run, the recorder)."""
-    import numpy as np
+def build_lm(cfg, dev):
+    """``cfg``'s LM on the card with weights drawn from ``SEED``; logs
+    its shape, parameters and memory."""
     import torch
-    from repro_torch.configs import get_arch
     from repro_torch.models import LM
-    from repro_torch.serving import Engine, Request
 
-    cfg = get_arch(arch)
-    n_attn = sum(k in ("attn", "local") for k in cfg.pattern)
-    n_rglru = cfg.pattern.count("rglru")
-    n_ssd = cfg.pattern.count("ssd")
     t0 = time.perf_counter()
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    model = LM(cfg, device=dev, generator=gen)
+    model = LM(cfg, device=dev,
+               generator=torch.Generator(device=dev).manual_seed(SEED))
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
     mixer = (f"ssd heads {cfg.ssm_heads} x {cfg.ssm_head_dim}, state "
-             f"{cfg.ssm_state}, chunk {cfg.ssm_chunk}" if n_ssd else
+             f"{cfg.ssm_state}, chunk {cfg.ssm_chunk}"
+             if "ssd" in cfg.pattern else
              f"heads {cfg.n_heads}/{cfg.n_kv_heads} x "
              f"{cfg.resolved_head_dim}, ff {cfg.d_ff}, window {cfg.window}")
+    if cfg.n_experts:
+        mixer += (f", {cfg.n_experts} experts top-{cfg.experts_per_token} "
+                  f"of ff {cfg.moe_d_ff}")
+    if cfg.encoder_layers:
+        mixer += f", encoder {cfg.encoder_layers} layers"
+    if cfg.frontend != "none":
+        mixer += (f", {cfg.frontend} {cfg.frontend_tokens} x "
+                  f"{cfg.frontend_dim or cfg.d_model}")
     log(f"lm: {cfg.name} [{cfg.family}], {cfg.n_layers} layers "
         f"({lm_layers(cfg)}), d {cfg.d_model}, {mixer}, vocab "
         f"{cfg.vocab_size}, {cfg.dtype}: {n_params} parameters "
         f"(n_params {cfg.n_params}), "
         f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB, built in "
         f"{time.perf_counter() - t0:.1f} s")
+    return model
+
+
+def lm_serve(dev, arch: str):
+    """Phase 7 (recurrentgemma-2b), 7c (qwen2-0.5b, mamba2-780m) and 7d
+    (moonshot-v1-16b-a3b): the LM serve path of ``arch`` at full width
+    (7c's at the depth of ``LM_DEPTH``).  Returns (launch counts of the run, the recorder)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.serving import Engine, Request
+
+    cfg = get_arch(arch)
+    if arch in LM_DEPTH:
+        cfg = dataclasses.replace(cfg, n_layers=LM_DEPTH[arch])
+    n_attn = sum(k in ("attn", "local") for k in cfg.pattern)
+    n_rglru = cfg.pattern.count("rglru")
+    n_ssd = cfg.pattern.count("ssd")
+    model = build_lm(cfg, dev)
     rng = np.random.default_rng(SEED)
     system = rng.integers(1, cfg.vocab_size, LM_SHARED, dtype=np.int32)
     prompts = [np.concatenate([system, rng.integers(
@@ -2505,21 +2580,26 @@ def lm_serve(dev, arch: str):
         torch.cuda.synchronize()
         return eng, outs, time.perf_counter() - t0
 
-    # a first pass of both policies, untimed and uncounted, under the
-    # Recorder: it keeps the inputs of each distinct kernel shape for
-    # phase 8 (the timed pass below runs the same prompts on the same
-    # weights), and it warms cuBLAS and the allocator for the timed pass
+    # a first pass of flat, untimed and uncounted, under the Recorder: it
+    # keeps the inputs of each distinct kernel shape for phase 8 (the
+    # timed pass below runs the same prompts on the same weights), and it
+    # warms cuBLAS and the allocator for the timed pass.  auto's 256
+    # host-dispatched decode-extend steps take 9-45 s a pass, so auto is
+    # not warmed but timed once (the time budget's cut, PERF.md §4),
+    # under the Recorder, which copies the inputs of its one new shape
+    # (the batch-1 molecule prefill, a few MB) and counts nothing
+    rec = Recorder()
     t0 = time.perf_counter()
-    with Recorder() as rec:
-        for policy in ("flat", "auto"):
-            serve(policy)
-    log(f"lm {cfg.name} warm-up pass (both policies, recorded): "
+    with rec:
+        serve("flat")
+    log(f"lm {cfg.name} warm-up pass (flat, recorded): "
         f"{time.perf_counter() - t0:.1f} s")
 
     reset_launches()
     results = {}
     for policy in ("flat", "auto"):
-        eng, outs, secs = serve(policy)
+        with rec if policy == "auto" else contextlib.nullcontext():
+            eng, outs, secs = serve(policy)
         peak = torch.cuda.max_memory_allocated(dev)
         st = eng.stats
         plan = eng.last_plan
@@ -2566,6 +2646,11 @@ def lm_serve(dev, arch: str):
     flash_d = {key[0][3] for key in rec.flash}
     assert flash_d == ({cfg.resolved_head_dim} if n_attn else set()), \
         flash_d
+    # both policies' prefills are held in phase 8: flat's batch and, where
+    # auto shares, its batch-1 molecule
+    assert {key[0][0] for key in rec.flash} == (
+        ({LM_REQUESTS, 1} if shares else {LM_REQUESTS}) if n_attn
+        else set()), list(rec.flash)
     if n_ssd:
         ssd_shape = (LM_REQUESTS * cfg.ssm_heads, -(-length // cfg.ssm_chunk),
                      cfg.ssm_state * cfg.ssm_head_dim)
@@ -2702,6 +2787,228 @@ def lm_policy_parity_f32(dev, arch: str) -> dict[str, int]:
 
 
 # ---------------------------------------------------------------------------
+# phases 7e-7f: the frontend stubs through serve_step, and every config
+# ---------------------------------------------------------------------------
+
+def stub_inputs(cfg, batch: int, text: int, dev, shared: int = 0):
+    """Seeded frontend embeddings (whisper's frames, the VLM's patches)
+    and text tokens for ``cfg``, the first ``shared`` of them the same in
+    every request (phase 7's system prompt).  Returns (tokens,
+    embeddings, the position of the first token after the text)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(SEED)
+    frames = torch.from_numpy(rng.standard_normal(
+        (batch, cfg.frontend_tokens, cfg.frontend_dim or cfg.d_model)
+    ).astype(np.float32)).to(dev)
+    system = rng.integers(1, cfg.vocab_size, shared)
+    toks = np.stack([np.concatenate([system, rng.integers(
+        1, cfg.vocab_size, text - shared)]) for _ in range(batch)])
+    offset = cfg.frontend_tokens if cfg.frontend == "vision_stub" else 0
+    return (torch.as_tensor(toks, dtype=torch.int64, device=dev), frames,
+            offset + text)
+
+
+def next_token_check(model, toks, frames, start: int, dev):
+    """The logits of a prefill of T - 1 tokens and one decode step of
+    the T-th, and those of a prefill of all T: (decode, prefill)."""
+    import torch
+    from repro_torch.train.serve_step import make_decode_step, \
+        make_prefill_step
+
+    prefill = make_prefill_step(model, cache_len=start + 1)
+    _, cache, _ = prefill(toks[:, :-1], frames)
+    pos = torch.full((toks.shape[0], 1), start - 1, dtype=torch.int32,
+                     device=dev)
+    _, _, dec = make_decode_step(model)(toks[:, -1:], cache, pos)
+    _, _, full = prefill(toks, frames)
+    return dec, full
+
+
+def stub_serve(dev, arch: str):
+    """Phase 7e: ``arch`` (whisper-medium or internvl2-2b) at full width
+    through ``serve_step`` with its frontend embeddings: a prefill of
+    the batch and LM_NEW - 1 greedy decode steps, timed after an
+    untimed pass (recorded for phase 8); flash launched only as its
+    bf16 kernel, as many times as the layers call it (whisper: encoder,
+    self- and cross-attention in prefill, cross-attention at T = 1 in
+    every decode step), every logit finite, and a prefill of T - 1
+    tokens plus one decode step within LM_LOGIT_STEPS of a prefill of
+    T.  Returns (launch counts of the timed pass, the recorder)."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import frontend_generate
+    from repro_torch.train.serve_step import make_decode_step, \
+        make_prefill_step
+
+    cfg = get_arch(arch)
+    model = build_lm(cfg, dev)
+    text, shared = ((WHISPER_PROMPT, 0) if cfg.encoder_layers else
+                    (LM_SHARED + LM_OWN, LM_SHARED))
+    toks, frames, start = stub_inputs(cfg, LM_REQUESTS, text, dev, shared)
+    b = LM_REQUESTS
+
+    def serve():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        return frontend_generate(model, toks, frames, LM_NEW)
+
+    with Recorder() as rec:
+        serve()
+    reset_launches()
+    st = serve()
+    launched = read_launches(("flash_attention", "linear_scan"))
+    kinds = flash_kernel_launches()
+    peak = torch.cuda.max_memory_allocated(dev)
+    logits = torch.stack(st.pop("logits"))
+    assert bool(torch.isfinite(logits).all()), f"{arch}: non-finite logits"
+    xattn = cfg.n_layers if cfg.encoder_layers else 0
+    want = cfg.n_layers + cfg.encoder_layers + xattn + (LM_NEW - 1) * xattn
+    assert launched == {"flash_attention": want, "linear_scan": 0}, \
+        f"{arch} launched {launched}, not {want} flash"
+    assert kinds == {"tensor_core": want, "cuda_core": 0}, kinds
+    flash_d = {key[0][3] for key in rec.flash}
+    assert flash_d == {cfg.resolved_head_dim}, flash_d
+    if cfg.encoder_layers:
+        enc = st["cache"][0]["xattn"]["k"]
+        assert tuple(enc.shape) == (b, cfg.n_kv_heads, cfg.frontend_tokens,
+                                    cfg.resolved_head_dim), enc.shape
+    del st["cache"]
+    log(f"lm serve_step {cfg.name} (warm): {b} requests x {text} prompt "
+        f"tokens + {cfg.frontend_tokens} {cfg.frontend} embeddings -> "
+        f"{LM_NEW} new each: prompt phase {st['prefill_s']:.4f} s, mean "
+        f"decode step {1e3 * sum(st['decode_s']) / len(st['decode_s']):.3f}"
+        f" ms over {len(st['decode_s'])} steps, peak device memory "
+        f"{peak / 2**30:.2f} GiB; flash {launched['flash_attention']} "
+        f"(tensor-core, head size {sorted(flash_d)}, shapes "
+        f"{[(k[0], k[1]) for k in rec.flash]})")
+
+    dec, full = next_token_check(model, toks, frames, start, dev)
+    delta = float((dec - full).abs().max())
+    scale = float(full.abs().max())
+    tol = bf16_steps(scale, LM_LOGIT_STEPS)
+    log(f"lm {cfg.name} prefill of {text - 1} + one decode step vs prefill "
+        f"of {text}: logits max |delta| {delta:.4g} (scale {scale:.4g}, "
+        f"tolerance {tol:.4g} = {LM_LOGIT_STEPS} bf16 steps), next tokens "
+        f"agree {int((dec.argmax(-1) == full.argmax(-1)).sum())}/{b}")
+    assert bool(torch.isfinite(dec).all() and torch.isfinite(full).all())
+    assert delta <= tol, f"{arch}: decode and prefill differ by {delta}"
+
+    # where the time goes: one traced prefill and four decode steps
+    prefill = make_prefill_step(model, cache_len=start + LM_NEW)
+    decode = make_decode_step(model)
+    state = {}
+
+    def prefill_only():
+        state["out"] = prefill(toks, frames)
+
+    def decode4():
+        cur, cache, _ = state["out"]
+        for t in range(4):
+            pos = torch.full((b, 1), start + t, dtype=torch.int32,
+                             device=dev)
+            cur, cache, _ = decode(cur[:, None], cache, pos)
+
+    profile_window(f"{cfg.name} prefill ({b} x {text} + "
+                   f"{cfg.frontend_tokens})", prefill_only)
+    profile_window(f"{cfg.name} 4 decode steps at batch {b}", decode4)
+    return launched, rec
+
+
+def stub_parity_f32(dev, arch: str) -> dict[str, int]:
+    """Phase 7e in float32: the reduced config of ``arch`` at head_dim 64
+    on the card, a prefill of 39 tokens plus one decode step against a
+    prefill of 40 within LM_F32_TOL, flash only as its CUDA-core kernel,
+    held against its plain version on the inputs this path gave it.
+    Returns the flash kernels' launches."""
+    import torch
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.models import LM
+
+    cfg = reduced(get_arch(arch), head_dim=64)
+    model = LM(cfg, device=dev,
+               generator=torch.Generator(device=dev).manual_seed(SEED))
+    toks, frames, start = stub_inputs(cfg, 4, 40, dev)
+    reset_launches()
+    with Recorder() as rec:
+        dec, full = next_token_check(model, toks, frames, start, dev)
+    kinds = flash_kernel_launches()
+    delta = float((dec - full).abs().max())
+    log(f"lm {cfg.name} float32 on the card ({cfg.n_layers} layers, "
+        f"encoder {cfg.encoder_layers}, d {cfg.d_model}, head_dim 64): "
+        f"prefill of 39 + one decode step vs prefill of 40, logits max "
+        f"|delta| {delta:.4g} (scale {float(full.abs().max()):.4g}, "
+        f"tolerance {LM_F32_TOL}); flash kernels {kinds}")
+    assert kinds["tensor_core"] == 0 and kinds["cuda_core"] > 0, kinds
+    assert delta <= LM_F32_TOL, f"{arch} float32: {delta}"
+    for q, k, v, kw in rec.flash.values():
+        flash_case(q, k, v, kw, f"float32 path q {tuple(q.shape)} kv "
+                                f"{tuple(k.shape)} {kw}")
+    return kinds
+
+
+def arch_sweep(dev) -> tuple[dict[str, int], dict]:
+    """Phase 7f: every config of ``ARCHS`` at its published width, depth
+    cut to SWEEP_LAYERS (and SWEEP_LAYERS encoder layers), bf16: a
+    SWEEP_TOKENS-token prefill (after the VLM's patches, over whisper's
+    frames) and one decode step at batch 1, every logit finite, flash
+    launched (bf16 only) at the config's head size by every attention
+    layer, the scan by every recurrent one.  Returns the launch counts
+    summed over the configs and each config's recorder, for phase 8."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.train.serve_step import make_decode_step, \
+        make_prefill_step
+
+    totals = {"flash_attention": 0, "linear_scan": 0}
+    recs = {}
+    for name, full in ARCHS.items():
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(
+            full, n_layers=max(SWEEP_LAYERS, len(full.layer_pattern)),
+            encoder_layers=min(full.encoder_layers, SWEEP_LAYERS))
+        model = build_lm(cfg, dev)
+        toks, frames, start = stub_inputs(cfg, 1, SWEEP_TOKENS, dev)
+        frames = frames if cfg.frontend != "none" else None
+        reset_launches()
+        with Recorder() as rec:
+            nxt, cache, first = make_prefill_step(
+                model, cache_len=start + 1)(toks, frames)
+            pos = torch.full((1, 1), start, dtype=torch.int32, device=dev)
+            _, _, second = make_decode_step(model)(nxt[:, None], cache, pos)
+        torch.cuda.synchronize()
+        launched = read_launches(("flash_attention", "linear_scan"))
+        kinds = flash_kernel_launches()
+        n_attn = sum(k in ("attn", "local") for k in cfg.pattern)
+        n_rec = sum(k in ("rglru", "ssd") for k in cfg.pattern)
+        flash_d = {key[0][3] for key in rec.flash}
+        log(f"lm sweep {name}: {lm_layers(cfg)} layers, encoder "
+            f"{cfg.encoder_layers}, {SWEEP_TOKENS} tokens + one decode step"
+            f": launches {launched}, flash head sizes {sorted(flash_d)}, "
+            f"logit scale {float(first.abs().max()):.4g} / "
+            f"{float(second.abs().max()):.4g}, peak "
+            f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB, "
+            f"{time.perf_counter() - t0:.1f} s")
+        assert bool(torch.isfinite(first).all() and
+                    torch.isfinite(second).all()), f"{name}: non-finite"
+        assert flash_d == ({cfg.resolved_head_dim} if n_attn else set()), \
+            (name, flash_d)
+        assert kinds["cuda_core"] == 0 and \
+            (launched["flash_attention"] > 0) == bool(n_attn), (name, kinds)
+        assert (launched["linear_scan"] > 0) == bool(n_rec), (name, launched)
+        for k in totals:
+            totals[k] += launched[k]
+        recs[f"{name} (sweep)"] = rec
+        del model, cache
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    return totals, recs
+
+
+# ---------------------------------------------------------------------------
 # phase 8: the LM kernels on the path's own inputs, and their times
 # ---------------------------------------------------------------------------
 
@@ -2757,9 +3064,9 @@ def scan_times(x, a, h0) -> dict:
 
 
 def lm_path_parity_and_times(recs: dict) -> dict:
-    """Phase 8, over the recorders of phases 7 and 7c (by architecture).
-    Returns the record fields of both LM kernels at their largest
-    recorded shape (recurrentgemma-2b's flat prefill)."""
+    """Phase 8, over the recorders of phases 7 and 7c-7f (by architecture;
+    7f's at every config's head size and GQA group).  Returns the
+    record fields of both LM kernels at their largest recorded shape."""
     import torch
 
     for arch, rec in recs.items():
@@ -2929,21 +3236,33 @@ def main() -> int:
     lm_kernel_parity(dev)
     log(f"lm kernel parity phase: {time.perf_counter() - t0:.1f} s")
 
-    # phases 7 (the hybrid stack), 7c (the dense and the SSM stack) and
-    # 7b (each in float32, reduced): each path's counts start at 0 and
-    # are summed in after it
+    # phases 7 (the hybrid stack), 7c (the dense and the SSM stack), 7d
+    # (MoE) and 7b (each in float32, reduced), 7e (the frontend stubs
+    # through serve_step, and in float32) and 7f (every config, 2
+    # layers): each path's counts start at 0 and are summed in after it
     totals.update(flash_attention=0, linear_scan=0, flash_attention_f32=0)
     recs = {}
-    for arch in LM_ARCHS:
+    for arch in LM_ARCHS + STUB_ARCHS:
         t0 = time.perf_counter()
-        lm_launches, recs[arch] = lm_serve(dev, arch)
+        serve, parity = ((lm_serve, lm_policy_parity_f32)
+                         if arch in LM_ARCHS else
+                         (stub_serve, stub_parity_f32))
+        lm_launches, recs[arch] = serve(dev, arch)
         for name, n in lm_launches.items():
             totals[name] += n
+        torch.cuda.empty_cache()
         # the float32 serve path is the float32 kernel's own path
-        totals["flash_attention_f32"] += \
-            lm_policy_parity_f32(dev, arch)["cuda_core"]
+        totals["flash_attention_f32"] += parity(dev, arch)["cuda_core"]
         torch.cuda.empty_cache()
         log(f"lm serve phase, {arch}: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    sweep_launches, sweep_recs = arch_sweep(dev)
+    for name, n in sweep_launches.items():
+        totals[name] += n
+    recs.update(sweep_recs)
+    del sweep_recs
+    log(f"lm sweep phase (every config, {SWEEP_LAYERS} layers): "
+        f"{time.perf_counter() - t0:.1f} s")
 
     # phase 8
     t0 = time.perf_counter()

@@ -4,10 +4,8 @@ The port's copy of ``repro/configs/base.py``: the fields the port reads,
 under the same names, and the same :func:`reduced` scaling of them, so
 a configuration here and its JAX twin describe the same network, and
 the same derived sizes (``homogeneous``, ``d_inner``, ``ssm_heads``,
-``n_params`` ...).  Of the MoE sizes only those ``n_params`` and
-``n_active_params`` read are here; the frontend sizes and the sharding
-and training-policy fields of the JAX schema are left out until a slice
-reads them.
+``n_params`` ...).  The sharding and training-policy fields of the JAX
+schema are left out until a slice reads them.
 """
 from __future__ import annotations
 
@@ -44,12 +42,15 @@ class ArchConfig:
     conv_width: int = 4
     # RG-LRU
     rglru_width: int = 0                # 0 -> d_model
-    # what later slices run; LM refuses a config that sets them
-    n_experts: int = 0                  # MoE
+    # MoE
+    n_experts: int = 0
     experts_per_token: int = 0
     moe_d_ff: int = 0                   # per-expert hidden (0 -> d_ff)
-    encoder_layers: int = 0             # encoder-decoder
+    # encoder-decoder and the frontend stubs
+    encoder_layers: int = 0
     frontend: Literal["none", "audio_stub", "vision_stub"] = "none"
+    frontend_tokens: int = 1500         # encoder positions / image patches
+    frontend_dim: int = 0               # stub embedding dim (0 -> d_model)
     # numerics
     dtype: str = "bfloat16"
     param_dtype: str = "bfloat16"
@@ -149,6 +150,8 @@ def reduced(cfg: ArchConfig, **overrides) -> ArchConfig:
         moe_d_ff=64 if cfg.n_experts else 0,
         rglru_width=128 if cfg.rglru_width else 0,
         encoder_layers=min(cfg.encoder_layers, 2),
+        frontend_tokens=16,
+        frontend_dim=64 if cfg.frontend_dim else 0,
         window=min(cfg.window, 32) if cfg.window else None,
         dtype="float32",
         param_dtype="float32",

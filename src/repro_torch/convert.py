@@ -56,10 +56,11 @@ def _to_tensor(arr) -> torch.Tensor:
     return torch.from_numpy(np.array(arr))
 
 
-def unstack_layers(stacked: dict, n_layers: int) -> list[dict]:
-    """A layer-stacked tree (every leaf ``(L, ...)``) as a list of ``L``
-    per-layer trees of numpy leaves; raises on a leaf without that
-    leading dimension."""
+def unstack_layers(stacked: dict, n_layers: int,
+                   path: str = "layers") -> list[dict]:
+    """A layer-stacked tree (every leaf ``(L, ...)``, an MoE's expert
+    weights ``(L, E, ...)``) as a list of ``L`` per-layer trees of numpy
+    leaves; raises on a leaf without that leading dimension."""
     def take(node, i, path):
         if isinstance(node, dict):
             return {k: take(v, i, f"{path}.{k}") for k, v in node.items()}
@@ -68,20 +69,25 @@ def unstack_layers(stacked: dict, n_layers: int) -> list[dict]:
             raise ValueError(f"{path}: a layer-stacked leaf needs a leading "
                              f"dimension of {n_layers}, got {arr.shape}")
         return arr[i]
-    return [take(stacked, i, "layers") for i in range(n_layers)]
+    return [take(stacked, i, path) for i in range(n_layers)]
 
 
 def lm_params_from_jax(cfg, tree) -> dict[str, torch.Tensor]:
     """The JAX ``LM.param_specs`` tree of ``cfg`` (numpy leaves) as the
     port's ``state_dict``: ``{"embed": ..., "layers.0.rglru.w_x": ...}``,
-    a layer-stacked ``layers`` dict unstacked first.  Raises if a name or
-    shape differs from the port's ``LM`` of ``cfg``."""
+    a layer-stacked ``layers`` dict (with an encoder-decoder's ``xattn``
+    leaves merged in) and ``encoder.layers`` unstacked first.  Raises if
+    a name or shape differs from the port's ``LM`` of ``cfg``."""
     from .models.common import torch_dtype
     from .models.lm import LM
     specs = LM.param_specs(cfg)
     if isinstance(tree.get("layers"), dict):
         tree = {**tree, "layers": unstack_layers(tree["layers"],
                                                  cfg.n_layers)}
+    if isinstance(tree.get("encoder", {}).get("layers"), dict):
+        enc = tree["encoder"]
+        tree = {**tree, "encoder": {**enc, "layers": unstack_layers(
+            enc["layers"], cfg.encoder_layers, "encoder.layers")}}
     out = {name: _to_tensor(leaf) for name, leaf in _flatten(tree)}
     if set(out) != set(specs):
         raise ValueError(f"param names differ: missing "

@@ -28,11 +28,12 @@
 //  * Online softmax, once per 256 keys: a row's max and sum reduce over
 //    its warp with xor shuffles; P goes to shared memory key-major, with
 //    each row's rescale factor.
-//  * O += PV: each thread owns an 8 x 8 (D = 256) or 4 x 4 (D = 64) block
-//    of O, rescaled once per tile, fed per key by float4 reads of P (its
-//    rows) and V (its columns): 16 floats for 64 FMAs at D = 256.
+//  * O += PV: each thread owns an 8 x 8 (D = 256), 4 x 8 (D = 128) or
+//    4 x 4 (D = 64) block of O, rescaled once per tile, fed per key by
+//    float4 reads of P (its rows) and V (its columns): 16 floats for 64
+//    FMAs at D = 256, 12 for 32 at D = 128.
 // The KV head of q-head h is h / (Hq / Hkv), read in place.  Shared
-// memory: 208.5 KB at D = 256, 157.5 KB at D = 64.
+// memory: 208.5 KB at D = 256, 174.5 KB at D = 128, 157.5 KB at D = 64.
 //
 // Masking: query row r sits at position qpos = r + S - T.  A key j is
 // attended when j < S, and j <= qpos if causal, and j > qpos - window if a
@@ -417,7 +418,7 @@ int launch(const void* q, const void* k, const void* v, void* out,
 }  // namespace
 
 // q: (B, Hq, T, D); k, v: (B, Hkv, S, D); out: (B, Hq, T, D), all
-// contiguous float32 starting on 16-byte boundaries.  D in {64, 256};
+// contiguous float32 starting on 16-byte boundaries.  D in {64, 128, 256};
 // window <= 0 means none.  Returns the cudaError_t of the launch (0 on
 // success).
 extern "C" int repro_flash_attention(const void* q, const void* k,
@@ -430,6 +431,9 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
     case 64:
       return launch<64>(q, k, v, out, b, hq, hkv, t, s, scale, causal, window,
                         st);
+    case 128:
+      return launch<128>(q, k, v, out, b, hq, hkv, t, s, scale, causal,
+                         window, st);
     case 256:
       return launch<256>(q, k, v, out, b, hq, hkv, t, s, scale, causal,
                          window, st);

@@ -25,15 +25,18 @@
 //    online softmax on the S registers (exp2 of log2e-scaled scores; m and
 //    the partial l per thread, float32), P rounded to bf16 in registers as
 //    the A operand of O += P V (wgmma.m64nDk16, V MN-major: the transpose
-//    bit of 16-bit types).  O stays in registers, float32.
+//    bit of 16-bit types).  O stays in registers, float32: D / 2 of them a
+//    thread (32, 64 or 128 at D = 64, 128, 256).  Shared memory holds the
+//    Q tile and two stages of K and V: 48, 96 or 192 KB.
 //  - Epilogue: O / l in bf16 into the warpgroup's own rows of the Q tile
 //    (no longer read), then a TMA store that clips rows >= T.
 //
 // Every tile sits in shared memory as 64-column sub-tiles (rows x 128
 // bytes, 128-byte swizzle, as TMA writes them), so D = 256 is four
-// sub-tiles; the wgmma descriptors step 32 bytes per 16-wide k slice
-// inside a sub-tile (K-major) or 16 rows per k slice (MN-major V, with the
-// four sub-tiles 64 rows apart as its leading byte offset).  The tensor
+// sub-tiles and D = 128 two; the wgmma descriptors step 32 bytes per
+// 16-wide k slice inside a sub-tile (K-major) or 16 rows per k slice
+// (MN-major V, with its sub-tiles 64 rows apart as its leading byte
+// offset).  The tensor
 // maps are 3-D (D, rows, batch * heads), so a ragged tile is zero-filled
 // or clipped at its own head's edge, never the next head's rows.
 //
@@ -205,6 +208,42 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D[64 x 128] += A[64 x 16] B[16 x 128]; A in registers, B MN-major in
+// shared memory.
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63 "
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
@@ -430,6 +469,8 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       for (int kk = 0; kk < kBN / 16; ++kk) {
         if constexpr (D == 256)
           wgmma_rs_n256(o, pf[kk], dv + ((kk * 16 * 128) >> 4));
+        else if constexpr (D == 128)
+          wgmma_rs_n128(o, pf[kk], dv + ((kk * 16 * 128) >> 4));
         else
           wgmma_rs_n64(o, pf[kk], dv + ((kk * 16 * 128) >> 4));
       }
@@ -535,7 +576,7 @@ int launch(const void* q, const void* k, const void* v, void* out,
 }  // namespace
 
 // q: (B, Hq, T, D); k, v: (B, Hkv, S, D); out: (B, Hq, T, D), all
-// contiguous bfloat16 with 16-byte-aligned bases.  D in {64, 256};
+// contiguous bfloat16 with 16-byte-aligned bases.  D in {64, 128, 256};
 // window <= 0 means none.  Returns the cudaError_t of the launch (0 on
 // success).
 extern "C" int repro_flash_attention_sm90(const void* q, const void* k,
@@ -549,6 +590,9 @@ extern "C" int repro_flash_attention_sm90(const void* q, const void* k,
     case 64:
       return launch<64>(q, k, v, out, b, hq, hkv, t, s, scale, causal, window,
                         st);
+    case 128:
+      return launch<128>(q, k, v, out, b, hq, hkv, t, s, scale, causal,
+                         window, st);
     case 256:
       return launch<256>(q, k, v, out, b, hq, hkv, t, s, scale, causal,
                          window, st);

@@ -48,7 +48,7 @@ launches = 0                 # both kernels
 tensor_core_launches = 0     # flash_attention_sm90.cu (bfloat16)
 cuda_core_launches = 0       # flash_attention.cu (float32)
 
-HEAD_DIMS = (64, 256)               # the head sizes the kernels are built for
+HEAD_DIMS = (64, 128, 256)          # the head sizes the kernels are built for
 # C entry of the kernel for each input type
 KERNELS = {torch.bfloat16: "repro_flash_attention_sm90",
            torch.float32: "repro_flash_attention"}

@@ -12,13 +12,19 @@ pointer, and every prefix policy must produce the same tokens.
 
 ``--arch`` takes every config of ``configs.ARCHS`` (the hybrid
 recurrentgemma-2b, the dense qwen2-0.5b, llama3.2-1b, qwen3-32b and
-llama3-405b, the SSM mamba2-780m) and defaults to qwen2-0.5b, as the JAX
-launcher does.  The weights are random, drawn from a ``torch.Generator``
-seeded with ``--seed``.  ``--reduced`` is the tiny float32 config at head_dim 64,
-the flash kernel's smallest build, so it runs on the card and on the
-CPU alike.  In float32 (``--reduced``) the policies' tokens are
-asserted identical; in bf16 an argmax over near-tied logits may
-differ, so there the share of agreeing tokens is printed instead.
+llama3-405b, the SSM mamba2-780m, the MoE moonshot-v1-16b-a3b and
+dbrx-132b, the encoder-decoder whisper-medium and the VLM internvl2-2b)
+and defaults to qwen2-0.5b, as the JAX launcher does.  The weights are
+random, drawn from a ``torch.Generator`` seeded with ``--seed``.
+``--reduced`` is the tiny float32 config at head_dim 64, the flash
+kernel's smallest build, so it runs on the card and on the CPU alike.
+In float32 (``--reduced``) the policies' tokens are asserted identical;
+in bf16 an argmax over near-tied logits may differ, so there the share
+of agreeing tokens is printed instead.  whisper-medium and internvl2-2b
+take the frontend stub's embeddings, which ``Engine`` requests do not
+carry: they are served through ``train.serve_step`` (a prefill with
+seeded ``frontend_embeds``, then greedy decode steps), without prefix
+policies.
 
 The graph modes serve the other side of the paper.  ``--graph-queries
 N`` answers N star queries on a compacted sensor graph through
@@ -57,6 +63,7 @@ from ..kernels.ops import resolve_device
 from ..models.lm import LM
 from ..serving import (PREFIX_POLICIES, BGPQueryRequest, Engine,
                        GraphQueryRequest, GraphQueryService, Request)
+from ..train.serve_step import make_decode_step, make_prefill_step
 
 
 def _graph_backend(backend: str, device):
@@ -530,6 +537,65 @@ def serve_online(n_batches: int = 20, *, n_observations: int = 80,
     return result
 
 
+def frontend_generate(model, toks, frames, max_new: int) -> dict:
+    """Greedy generation through ``serve_step`` for an encoder-decoder or
+    VLM config: one prefill of ``toks`` (B, T) with the frontend
+    embeddings ``frames`` (the VLM's patches go before the text), then
+    ``max_new - 1`` decode steps, the device synchronised after each.
+    Returns the tokens (B, max_new), each step's (B, V) logits, the last
+    cache, the prompt phase's seconds and each decode step's."""
+    cfg, dev = model.cfg, model.device
+    n = toks.shape[0]
+    start = toks.shape[1] + (cfg.frontend_tokens
+                             if cfg.frontend == "vision_stub" else 0)
+    prefill = make_prefill_step(model, cache_len=start + max_new)
+    decode = make_decode_step(model)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    sync()
+    t0 = time.perf_counter()
+    nxt, cache, logits = prefill(toks, frames)
+    sync()
+    out = {"prefill_s": time.perf_counter() - t0, "decode_s": [],
+           "logits": [logits]}
+    steps = [nxt]
+    for t in range(1, max_new):
+        t1 = time.perf_counter()
+        pos = torch.full((n, 1), start + t - 1, dtype=torch.int32,
+                         device=dev)
+        nxt, cache, logits = decode(nxt[:, None], cache, pos)
+        sync()
+        out["decode_s"].append(time.perf_counter() - t1)
+        out["logits"].append(logits)
+        steps.append(nxt)
+    out["tokens"] = torch.stack(steps, dim=1)
+    out["cache"] = cache
+    return out
+
+
+def serve_frontend(model, args, rng) -> dict:
+    """An encoder-decoder or VLM config through ``serve_step``: seeded
+    frontend embeddings (whisper's frames, the VLM's patches), one
+    prefill of every request, greedy decode steps."""
+    cfg, dev = model.cfg, model.device
+    n, length = args.requests, args.prompt_len
+    frames = torch.from_numpy(rng.standard_normal(
+        (n, cfg.frontend_tokens, cfg.frontend_dim or cfg.d_model)).astype(
+        np.float32)).to(dev)
+    toks = torch.from_numpy(rng.integers(
+        1, cfg.vocab_size, (n, length), dtype=np.int64)).to(dev)
+    out = frontend_generate(model, toks, frames, args.max_new)
+    print(f"serve_step: {n} requests x {length} tokens + "
+          f"{cfg.frontend_tokens} {cfg.frontend} embeddings -> "
+          f"{args.max_new} new each in "
+          f"{out['prefill_s'] + sum(out['decode_s']):.2f}s")
+    return {"outputs": dict(enumerate(out["tokens"].tolist())),
+            "plan_savings_pct": 0.0}
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default="qwen2-0.5b",
@@ -607,6 +673,8 @@ def main(argv=None) -> dict:
           f"{cfg.family}, {cfg.n_layers} layers, d {cfg.d_model}, "
           f"{cfg.dtype}, on {dev}")
     rng = np.random.default_rng(args.seed)
+    if cfg.encoder_layers or cfg.frontend != "none":
+        return serve_frontend(model, args, rng)
 
     shared_len = int(args.prompt_len * args.shared_frac)
     system_prompt = rng.integers(1, cfg.vocab_size, (shared_len,),

@@ -1,15 +1,15 @@
-"""Layer blocks of the hybrid, dense and SSM stacks.
+"""Layer blocks of every family.
 
-The port's copy of the parts of ``repro/models/blocks.py`` that the
-hybrid (recurrentgemma), dense (qwen2, llama, qwen3) and SSM (mamba2)
-families need: GQA attention (rope, ``qkv_bias``, ``qk_norm``, causal
-and global or windowed) with its prefill and decode paths, the gated
-MLP, the RG-LRU recurrent block with its causal conv, and the mamba2
-SSD mixer (chunked state-space duality, its inter-chunk recurrence on
-``linear_scan``).  Each block is a :class:`~.common.SpecModule` whose
-parameters carry the JAX names (``wq``, ``w_gate``, ``lam``, ``w_in``
-...); norms, rope and the conv are plain functions on tensors.  MoE
-waits for a later slice.
+The port's copy of ``repro/models/blocks.py``: GQA attention (rope or
+learned positions, ``qkv_bias``, ``qk_norm``, causal and global or
+windowed, or cross-attention over an encoder's K/V) with its prefill
+and decode paths, the gated MLP, the dropless top-k MoE (its ``ragged``
+path and the expert-parallel ``shard_map`` one), the RG-LRU recurrent
+block with its causal conv, and the mamba2 SSD mixer (chunked
+state-space duality, its inter-chunk recurrence on ``linear_scan``).
+Each block is a :class:`~.common.SpecModule` whose parameters carry the
+JAX names (``wq``, ``w_gate``, ``router``, ``lam``, ``w_in`` ...);
+norms, rope and the conv are plain functions on tensors.
 
 Every mixer has two modes: prefill (full sequence, optionally emitting
 the decode cache) and decode (one token against the cache).  Decode
@@ -19,7 +19,9 @@ state of a step and is never copied -- and returns it.
 from __future__ import annotations
 
 import dataclasses
+import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -33,9 +35,16 @@ EMPTY_POS = (2**31 - 1) // 2
 
 @dataclasses.dataclass(frozen=True)
 class Ctx:
-    """Per-call context: the config and the decode cache's length."""
+    """Per-call context: the config, the decode cache's length and the
+    MoE implementation (``ragged``: dropless, one device; ``shard_map``:
+    expert-parallel over ``mesh``'s ``model`` axis with a static
+    per-expert capacity of ``moe_capacity_factor`` times the even
+    share)."""
     cfg: object
     cache_len: int = 0
+    moe_impl: str = "ragged"
+    mesh: object = None
+    moe_capacity_factor: float = 1.25
 
 
 # ---------------------------------------------------------------------------
@@ -106,33 +115,46 @@ class Attention(SpecModule):
         super().__init__(attn_specs(cfg), device)
         self.cfg = cfg
 
-    def project_qkv(self, x: torch.Tensor):
+    def project(self, x: torch.Tensor, name: str) -> torch.Tensor:
+        """One projection of x (B, T, D): ``name`` "q" -> (B, T, H, hd),
+        "k" or "v" -> (B, T, Hkv, hd), with its bias and (q, k) norm."""
         cfg = self.cfg
-        b, t, _ = x.shape
-        hd = cfg.resolved_head_dim
-        q = x @ self.wq.to(x.dtype)
-        k = x @ self.wk.to(x.dtype)
-        v = x @ self.wv.to(x.dtype)
+        y = x @ getattr(self, "w" + name).to(x.dtype)
         if cfg.qkv_bias:
-            q = q + self.bq.to(x.dtype)
-            k = k + self.bk.to(x.dtype)
-            v = v + self.bv.to(x.dtype)
-        q = q.reshape(b, t, cfg.n_heads, hd)
-        k = k.reshape(b, t, cfg.n_kv_heads, hd)
-        v = v.reshape(b, t, cfg.n_kv_heads, hd)
-        if cfg.qk_norm:
-            q = rms_norm(q, self.q_norm)
-            k = rms_norm(k, self.k_norm)
-        return q, k, v
+            y = y + getattr(self, "b" + name).to(x.dtype)
+        heads = cfg.n_heads if name == "q" else cfg.n_kv_heads
+        y = y.reshape(*x.shape[:2], heads, cfg.resolved_head_dim)
+        if cfg.qk_norm and name != "v":
+            y = rms_norm(y, getattr(self, name + "_norm"))
+        return y
+
+    def encoder_kv(self, enc_out: torch.Tensor) -> dict:
+        """The cross-attention K/V of an encoder's output (B, S, D), each
+        (B, Hkv, S, hd), no rope (the JAX ``_encoder_kv``); no Q."""
+        h = rms_norm(enc_out, self.ln)
+        return {n: self.project(h, n).transpose(1, 2).contiguous()
+                for n in ("k", "v")}
 
     def forward(self, ctx: Ctx, x: torch.Tensor, positions: torch.Tensor, *,
-                window: int | None = None, cache: dict | None = None,
-                return_cache: bool = False):
-        """Returns (out, new_cache).  x: (B, T, D); positions: (B, T)."""
+                causal: bool = True, window: int | None = None,
+                cache: dict | None = None, return_cache: bool = False,
+                kv_override: dict | None = None):
+        """Returns (out, new_cache).  x: (B, T, D); positions: (B, T).
+        ``kv_override`` (cross-attention): :meth:`encoder_kv`'s K/V,
+        attended without a mask in place of this x's own k and v."""
         cfg = self.cfg
         b, t, _ = x.shape
         hd = cfg.resolved_head_dim
-        q, k, v = self.project_qkv(x)
+        q = self.project(x, "q")
+        if kv_override is not None:                         # no own K/V
+            if cfg.rope_theta > 0:
+                q = rope(q, positions, cfg.rope_theta)
+            out = kops.attention(q.transpose(1, 2).contiguous(),
+                                 kv_override["k"], kv_override["v"],
+                                 causal=False)
+            out = out.transpose(1, 2).reshape(b, t, cfg.n_heads * hd)
+            return out @ self.wo.to(x.dtype), None
+        k, v = self.project(x, "k"), self.project(x, "v")
         if cfg.rope_theta > 0:
             q = rope(q, positions, cfg.rope_theta)
             k = rope(k, positions, cfg.rope_theta)
@@ -160,7 +182,7 @@ class Attention(SpecModule):
         else:                                               # prefill
             kh = k.transpose(1, 2).contiguous()
             vh = v.transpose(1, 2).contiguous()
-            out = kops.attention(qh, kh, vh, causal=True, window=window)
+            out = kops.attention(qh, kh, vh, causal=causal, window=window)
             if return_cache:
                 new_cache = attn_prefill_cache(k, v, positions,
                                                ctx.cache_len, window,
@@ -183,14 +205,196 @@ def mlp_specs(cfg) -> dict[str, TSpec]:
     }
 
 
+def gated_ffn(x: torch.Tensor, w_gate, w_up, w_down) -> torch.Tensor:
+    """silu(x W_gate) * (x W_up) W_down in x's dtype: the MLP, one
+    expert on its rows (m, d), or a batch of experts on (e, c, d) with
+    (e, d, f) weights."""
+    h = F.silu(x @ w_gate.to(x.dtype)) * (x @ w_up.to(x.dtype))
+    return h @ w_down.to(x.dtype)
+
+
 class MLP(SpecModule):
     def __init__(self, cfg, device):
         super().__init__(mlp_specs(cfg), device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = F.silu(x @ self.w_gate.to(x.dtype))
-        h = h * (x @ self.w_up.to(x.dtype))
-        return h @ self.w_down.to(x.dtype)
+        return gated_ffn(x, self.w_gate, self.w_up, self.w_down)
+
+
+# ---------------------------------------------------------------------------
+# dropless MoE (top-k router + per-expert GEMMs)
+# ---------------------------------------------------------------------------
+
+def moe_specs(cfg) -> dict[str, TSpec]:
+    d, pd = cfg.d_model, cfg.param_dtype
+    e, f = cfg.n_experts, (cfg.moe_d_ff or cfg.d_ff)
+    return {
+        "router": TSpec((d, e), "float32"),
+        "w_gate": TSpec((e, d, f), pd),
+        "w_up": TSpec((e, d, f), pd),
+        "w_down": TSpec((e, f, d), pd, init="scaled"),
+        "ln": TSpec((d,), "float32", init="zeros"),
+    }
+
+
+def router(cfg, w_router: torch.Tensor, xf: torch.Tensor):
+    """(top weights (n, k), top experts (n, k), aux): float32 logits and
+    softmax, top-k by probability (``sorted``, as ``jax.lax.top_k``), the
+    k weights renormalised, and the Switch-style load-balance loss."""
+    e, k = cfg.n_experts, cfg.experts_per_token
+    probs = torch.softmax(xf.float() @ w_router.float(), dim=-1)
+    topw, tope = torch.topk(probs, k, dim=-1, sorted=True)
+    topw = topw / topw.sum(dim=-1, keepdim=True)
+    density = F.one_hot(tope, e).float().mean(dim=(0, 1))
+    aux = e * torch.sum(density * probs.mean(dim=0))
+    return topw, tope, aux
+
+
+def _combine(ys: torch.Tensor, order: torch.Tensor, w: torch.Tensor,
+             n: int, k: int) -> torch.Tensor:
+    """The (n, d) output of the expert-sorted rows ``ys`` (slot ``i`` of
+    ``ys`` is flat slot ``order[i]``, token ``order[i] // k``): each
+    weighted by its routing weight ``w`` (n * k,) and summed over the
+    token's k slots in slot order.  A gather and a sum, no atomics, so
+    the result does not vary from run to run."""
+    flat = torch.empty_like(ys)
+    flat[order] = ys
+    flat = flat * w[:, None].to(ys.dtype)
+    return flat.view(n, k, -1).sum(dim=1)
+
+
+# At most this many tokens, the dropless MoE runs every expert on every
+# token as batched (E, n, d) products.  That reads every expert's weights
+# where top-k needs only the active ones (at batch 1, 64 experts where
+# moonshot-v1-16b-a3b's top-6 needs 6: ~10.7x the bytes, ~16 ms a step at
+# HBM rate on an H100), so it trades weight bytes for host work: ~10
+# launches a layer instead of ~6 per active expert and a read of the
+# group sizes.  A decode step of moonshot at batch 8 took 285 ms the
+# per-expert way on an H100, 86% of it idle device, and 134.7 ms this way
+# (PERF.md §6); once the step is no longer host-bound (a CUDA graph, a
+# grouped-GEMM kernel) this route costs more than it saves
+MOE_DENSE_TOKENS = 64
+
+
+def moe_ragged(cfg, p, x: torch.Tensor):
+    """Dropless top-k MoE (the JAX ``ragged`` path, whose grouped GEMM is
+    ``jax.lax.ragged_dot``).  Above :data:`MOE_DENSE_TOKENS` tokens: the
+    (token, expert) slots sorted by expert (stable, as ``jnp.argsort``),
+    the group sizes read to the host once, one gated FFN per non-empty
+    expert on its contiguous rows; at or below it, every expert on
+    every token and each token's k outputs picked.  Returns ((B, T, D)
+    out, aux)."""
+    b, t, d = x.shape
+    k = cfg.experts_per_token
+    n = b * t
+    xf = x.reshape(n, d)
+    topw, tope, aux = router(cfg, p.router, xf)
+    if n <= MOE_DENSE_TOKENS:
+        ye = gated_ffn(xf.expand(cfg.n_experts, n, d), p.w_gate, p.w_up,
+                       p.w_down)                           # (E, n, d)
+        ys = ye[tope, torch.arange(n, device=x.device)[:, None]]
+        out = (ys * topw[..., None].to(ys.dtype)).sum(dim=1)
+        return out.reshape(b, t, d), aux
+    flat_e = tope.reshape(-1)
+    order = torch.argsort(flat_e, stable=True)
+    xs = xf[order // k]                                    # expert-sorted
+    sizes = torch.bincount(flat_e, minlength=cfg.n_experts).tolist()
+    ys = torch.empty_like(xs)
+    lo = 0
+    for i, m in enumerate(sizes):
+        if m:
+            ys[lo:lo + m] = gated_ffn(xs[lo:lo + m], p.w_gate[i],
+                                      p.w_up[i], p.w_down[i])
+            lo += m
+    out = _combine(ys, order, topw.reshape(-1), n, k)
+    return out.reshape(b, t, d), aux
+
+
+def moe_local_experts(xf, topw, tope, w_gate, w_up, w_down, e_lo: int,
+                      capacity: int) -> torch.Tensor:
+    """One model-axis entry's experts ``[e_lo, e_lo + e_local)`` over all
+    of its tokens, at a static ``capacity`` rows per expert (the JAX
+    ``_moe_local_experts``): a slot past its expert's capacity, or of a
+    foreign expert, is dropped.  Returns the (n, d) partial output."""
+    n, d = xf.shape
+    k = tope.shape[1]
+    e_local = w_gate.shape[0]
+    rel = tope.reshape(-1) - e_lo
+    mine = (rel >= 0) & (rel < e_local)
+    key = torch.where(mine, rel, e_local)                  # foreign last
+    order = torch.argsort(key, stable=True)
+    sorted_rel = key[order]
+    starts = torch.searchsorted(sorted_rel, torch.arange(
+        e_local, device=xf.device, dtype=sorted_rel.dtype))
+    pos = torch.arange(n * k, device=xf.device) - \
+        starts[sorted_rel.clamp(max=e_local - 1)]
+    keep = (sorted_rel < e_local) & (pos < capacity)
+    src = torch.where(keep[:, None], xf[order // k], 0).to(xf.dtype)
+    slot_e = torch.where(keep, sorted_rel, 0)
+    slot_c = torch.where(keep, pos, 0)
+    # kept slots are distinct; the dropped ones add zeros at (0, 0)
+    xe = torch.zeros((e_local, capacity, d), dtype=xf.dtype,
+                     device=xf.device).index_put_((slot_e, slot_c), src,
+                                                  accumulate=True)
+    ye = gated_ffn(xe, w_gate, w_up, w_down)               # (e, c, d)
+    ys = ye[slot_e, slot_c] * keep[:, None]
+    return _combine(ys, order, topw.reshape(-1), n, k)
+
+
+def moe_shard_map(ctx: Ctx, p, x: torch.Tensor):
+    """Expert parallelism over ``ctx.mesh`` (the JAX ``_moe_shard_map``),
+    single-controller: the batch is split over the mesh's other axes
+    when it divides them (else each takes all of it), each ``model``
+    entry runs its ``e / TP`` local experts on its entry's device with
+    the static capacity, and the sum over the entries stands in for
+    the ``psum``; ``aux`` is the mean over the batch shards."""
+    cfg = ctx.cfg
+    mesh = ctx.mesh
+    b, t, d = x.shape
+    e, k = cfg.n_experts, cfg.experts_per_token
+    names = list(mesh.axis_names)
+    tp = mesh.devices.shape[names.index("model")]
+    if e % tp:
+        raise ValueError(f"experts {e} must divide the model axis {tp}")
+    e_local = e // tp
+    grid = np.moveaxis(mesh.devices, names.index("model"), -1).reshape(-1, tp)
+    n_dp = grid.shape[0]
+    shards = n_dp if b % n_dp == 0 else 1      # else every entry: all of it
+    b_local = b // shards
+    capacity = max(1, math.ceil(b_local * t * k * ctx.moe_capacity_factor
+                                / e))
+    outs, auxes = [], []
+    for i in range(shards):
+        xb = x[i * b_local:(i + 1) * b_local]
+        xf = xb.reshape(-1, d)
+        total = None
+        for j, dev in enumerate(grid[i]):
+            xj = xf.to(dev)
+            topw, tope, aux = router(cfg, p.router.to(dev), xj)
+            sl = slice(j * e_local, (j + 1) * e_local)
+            part = moe_local_experts(
+                xj, topw, tope, p.w_gate[sl].to(dev), p.w_up[sl].to(dev),
+                p.w_down[sl].to(dev), j * e_local, capacity).to(x.device)
+            total = part if total is None else total + part
+        outs.append(total.reshape(xb.shape))
+        auxes.append(aux.to(x.device))
+    return torch.cat(outs), torch.stack(auxes).mean()
+
+
+class MoE(SpecModule):
+    def __init__(self, cfg, device):
+        super().__init__(moe_specs(cfg), device)
+        self.cfg = cfg
+
+    def forward(self, ctx: Ctx, x: torch.Tensor):
+        """Returns (out, aux)."""
+        if ctx.moe_impl == "ragged":
+            return moe_ragged(self.cfg, self, x)
+        if ctx.moe_impl == "shard_map":
+            if ctx.mesh is None:
+                raise ValueError('moe_impl="shard_map" needs ctx.mesh')
+            return moe_shard_map(ctx, self, x)
+        raise ValueError(f"unknown moe_impl {ctx.moe_impl!r}")
 
 
 # ---------------------------------------------------------------------------

@@ -87,6 +87,15 @@ class Engine:
 
     def __init__(self, model, *, cache_len: int = 512, chunk: int = 64,
                  policy: str | PrefixPolicy = "auto", device="cuda"):
+        cfg = model.cfg
+        if cfg.encoder_layers or cfg.frontend != "none":
+            # the JAX engine prefills these without their frontend_embeds
+            # and fails inside the encoder or the stub's projection
+            raise ValueError(
+                f"{cfg.name} ({cfg.frontend}) needs frontend_embeds, which "
+                "Engine requests do not carry: serve it through "
+                "train.serve_step.make_prefill_step(model, cache_len=...)"
+                "(tokens, frontend_embeds) and make_decode_step")
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model lives on {model.device}, engine on "

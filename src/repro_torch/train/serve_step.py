@@ -10,9 +10,12 @@ from typing import Callable
 
 
 def make_prefill_step(model, *, cache_len: int) -> Callable:
-    def prefill(tokens):
-        """tokens: (B, T).  Returns (next (B,) int32, cache, (B, V) f32)."""
-        logits, cache = model.prefill(tokens, cache_len=cache_len)
+    def prefill(tokens, frontend_embeds=None):
+        """tokens: (B, T); ``frontend_embeds``: the stub's frame or patch
+        embeddings (whisper, the VLM).  Returns (next (B,) int32, cache,
+        (B, V) f32)."""
+        logits, cache = model.prefill(tokens, cache_len=cache_len,
+                                      frontend_embeds=frontend_embeds)
         last = logits[:, -1].float()
         return last.argmax(dim=-1).int(), cache, last
     return prefill

@@ -174,7 +174,9 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
 @pytest.mark.parametrize("dtype, d, entry", [
     (torch.bfloat16, 256, "repro_flash_attention_sm90"),
     (torch.bfloat16, 64, "repro_flash_attention_sm90"),
+    (torch.bfloat16, 128, "repro_flash_attention_sm90"),
     (torch.float32, 256, "repro_flash_attention"),
+    (torch.float32, 128, "repro_flash_attention"),
     (torch.float32, 64, "repro_flash_attention")], ids=str)
 def test_wrapper_routes_each_type_to_its_kernel(dtype, d, entry):
     """bf16 to the tensor-core kernel, float32 to the CUDA-core one."""
@@ -183,7 +185,7 @@ def test_wrapper_routes_each_type_to_its_kernel(dtype, d, entry):
 
 @pytest.mark.parametrize("dtype, d, error", [
     (torch.float16, 256, TypeError), (torch.float64, 64, TypeError),
-    (torch.bfloat16, 128, ValueError), (torch.float32, 32, ValueError)],
+    (torch.bfloat16, 96, ValueError), (torch.float32, 32, ValueError)],
     ids=str)
 def test_wrapper_routes_no_other_type_or_head_dim(dtype, d, error):
     with pytest.raises(error):
@@ -321,8 +323,13 @@ def test_float32_tile_schedule_matches_plain(case):
 
 # (B, Hq, Hkv, T, S, D, causal, window): ragged T and S, T < S, T > S
 # (fully masked rows; at T = 300, S = 20 whole query tiles see no key),
-# GQA groups 1, 2 and 10, D 64 and 256
+# GQA groups 1, 2 and 10, D 64, 128 and 256
 CUDA_CASES = [(2, 4, 4, 64, 64, 64, True, None),
+              (2, 4, 4, 64, 64, 128, True, None),
+              (2, 4, 2, 77, 77, 128, False, None),
+              (1, 4, 2, 100, 300, 128, True, None),
+              (1, 4, 4, 37, 130, 128, False, 40),
+              (1, 2, 1, 70, 20, 128, True, None),
               (1, 10, 1, 100, 300, 256, True, 128),
               (2, 4, 2, 77, 77, 64, False, None),
               (1, 4, 2, 37, 130, 64, False, 40),
@@ -335,7 +342,13 @@ CUDA_CASES = [(2, 4, 4, 64, 64, 64, True, None),
 PATH_CASES = [(8, 10, 1, 2304, 2304, 256, True, 2048),
               (1, 10, 1, 2048, 2048, 256, True, 2048),
               (2, 10, 1, 201, 333, 256, True, 100),
-              (1, 4, 2, 130, 70, 64, False, None)]
+              (1, 4, 2, 130, 70, 64, False, None),
+              # moonshot-v1-16b-a3b's flat prefill (D 128, group 1),
+              # whisper's encoder (non-causal, S = 1500) and its
+              # cross-attention at T = 1
+              (8, 16, 16, 2304, 2304, 128, True, None),
+              (2, 16, 16, 1500, 1500, 64, False, None),
+              (8, 16, 16, 1, 1500, 64, False, None)]
 
 
 @pytest.mark.cuda
@@ -356,8 +369,10 @@ def test_cuda_flash_attention_matches_plain(cuda, case, dtype):
 # float32 at the CUDA-core kernel's tile edges (64 query rows, 256-key
 # tiles, 32-key V chunks): T and S one off a tile either way, T < S, a
 # window under one V chunk, fully masked rows (T > S), GQA groups 1, 2
-# and 10, D 64 and 256
+# and 10, D 64, 128 and 256
 F32_EDGE_CASES = [(1, 2, 2, 63, 255, 64, True, None),
+                  (1, 2, 2, 65, 257, 128, True, None),
+                  (2, 4, 2, 127, 511, 128, False, None),
                   (1, 2, 1, 65, 257, 64, True, None),
                   (2, 4, 2, 127, 511, 256, False, None),
                   (1, 10, 1, 129, 400, 256, True, 17),

@@ -143,10 +143,13 @@ def test_configs_and_their_helpers_equal_jax(name, cut):
 
 
 def test_the_port_lists_only_what_it_runs():
-    """MoE, whisper and the VLM stub are not listed until their slices."""
-    assert sorted(T_ARCHS) == ["llama3-405b", "llama3.2-1b", "mamba2-780m",
-                               "qwen2-0.5b", "qwen3-32b",
-                               "recurrentgemma-2b"]
+    """Every architecture of the JAX package's ``ARCHS``: the dense, SSM
+    and hybrid stacks, MoE, whisper and the VLM stub."""
+    assert sorted(T_ARCHS) == ["dbrx-132b", "internvl2-2b", "llama3-405b",
+                               "llama3.2-1b", "mamba2-780m",
+                               "moonshot-v1-16b-a3b", "qwen2-0.5b",
+                               "qwen3-32b", "recurrentgemma-2b",
+                               "whisper-medium"]
     for cfg in T_ARCHS.values():
         LM.param_specs(cfg)                # none raises NotImplementedError
 
@@ -203,11 +206,17 @@ def test_decode_after_prefill_equals_full_prefill(M):
 def test_cache_specs_describe_the_prefill_cache(name):
     """Every family's prefill cache has the shapes and types of
     ``LM.cache_specs``, which are the JAX ``LM.cache_specs`` less the
-    layer axis of a homogeneous stack."""
+    layer axis of a homogeneous stack (an encoder-decoder's
+    ``encoder_kv`` in each layer's ``xattn``)."""
     cfg = t_reduced(t_get_arch(name))
     model = LM(cfg, device="cpu", generator=torch.Generator().manual_seed(1))
+    frames = None
+    if cfg.frontend != "none":
+        frames = torch.from_numpy(np.random.default_rng(3).standard_normal(
+            (3, cfg.frontend_tokens, cfg.frontend_dim or cfg.d_model)
+        ).astype(np.float32))
     _, tc = model.prefill(torch.from_numpy(_tokens(3, 3, 20)),
-                          cache_len=CACHE_LEN)
+                          cache_len=CACHE_LEN, frontend_embeds=frames)
     specs = model.cache_specs(3, CACHE_LEN)
     assert len(specs) == len(tc) == cfg.n_layers
     for spec, layer in zip(specs, tc):
@@ -221,7 +230,10 @@ def test_cache_specs_describe_the_prefill_cache(name):
     pytest.importorskip("jax")
     from repro.configs import get_arch, reduced
     from repro.models.lm import LM as JLM
-    want = JLM(reduced(get_arch(name))).cache_specs(3, CACHE_LEN)["layers"]
+    jspecs = JLM(reduced(get_arch(name))).cache_specs(3, CACHE_LEN)
+    want = jspecs["layers"]
+    if "encoder_kv" in jspecs:
+        want = {**want, "xattn": jspecs["encoder_kv"]}
     if cfg.homogeneous:
         want = [{blk: {k: s.shape[1:] for k, s in d.items()}
                  for blk, d in want.items()}] * cfg.n_layers
@@ -352,8 +364,10 @@ def test_a_second_decode_of_the_last_token_is_idempotent_here(M):
 
 def test_serve_launcher_defaults_to_qwen2_and_runs_every_arch(capsys):
     """``--arch`` defaults to the JAX launcher's qwen2-0.5b and takes
-    every config the port lists; ``--reduced`` runs each on the CPU."""
+    every config the port lists; ``--reduced`` runs each on the CPU,
+    whisper and the VLM through ``serve_step`` (no prefix policies)."""
     from repro_torch.launch import serve
+    stubs = ("audio", "vlm")
     for name in sorted(T_ARCHS):
         out = serve.main(["--arch", name, "--reduced", "--device", "cpu",
                           "--requests", "2", "--prompt-len", "64",
@@ -362,8 +376,12 @@ def test_serve_launcher_defaults_to_qwen2_and_runs_every_arch(capsys):
         assert all(len(v) == 3 for v in out["outputs"].values())
         # an SSM stack holds no KV bytes: nothing to share
         assert (out["plan_savings_pct"] > 0) == (
-            t_get_arch(name).family != "ssm"), name
-    assert capsys.readouterr().out.count("identical outputs") == len(T_ARCHS)
+            t_get_arch(name).family not in ("ssm",) + stubs), name
+    text = capsys.readouterr().out
+    assert text.count("identical outputs") == sum(
+        c.family not in stubs for c in T_ARCHS.values())
+    assert text.count("serve_step:") == sum(c.family in stubs
+                                            for c in T_ARCHS.values())
     serve.main(["--reduced", "--device", "cpu", "--requests", "2",
                 "--prompt-len", "32", "--max-new", "2"])
     assert capsys.readouterr().out.startswith("lm qwen2-0.5b (reduced)")
