@@ -190,8 +190,45 @@ Phases, each an assertion (any failure exits non-zero):
    and their times, plain times, bounds and library yardsticks at every
    shape those phases recorded (the scan's decode step among them); the
    float32 CUDA-core flash kernel at the largest prefill shape beside
-   them.  The largest shapes' numbers (recurrentgemma-2b's flat prefill)
-   go into the record.
+   them, and at internvl2-2b's prefill shape (head size 128).  The
+   largest shapes' numbers (recurrentgemma-2b's flat prefill) go into
+   the record;
+9. training, through ``train.make_train_step`` with the optimizer
+   ``launch.train`` builds (``make_optimizer(cfg, base_lr=3e-4,
+   warmup=10, total=100)``): (b) qwen2-0.5b at its published width and
+   depth (24 layers), bf16, seeded weights, remat on, ``LMPipeline`` at
+   train_4k's sequence length 4096 and batch 8 (the global 256 cut for
+   time), one untimed step then 5 timed ones on one repeated batch:
+   every parameter a finite, nonzero gradient in the first step, every
+   loss and grad norm finite, the last loss below the first, flash
+   launched 24 times in the forward and 24 in the remat recompute per
+   step (tensor cores only); its step time, tokens/s, peak memory, and
+   one more step under ``torch.profiler`` (idle share, top kernels);
+   (c) recurrentgemma-2b, mamba2-780m, moonshot-v1-16b-a3b,
+   whisper-medium and internvl2-2b at published width and 7f's depth,
+   one step at batch 2 x 512: the scan launched forward, in the remat
+   recompute and reversed in the backward, MoE ``aux`` finite and
+   positive, every gradient finite and nonzero; (d) the reduced float32
+   qwen2-0.5b and recurrentgemma-2b at head_dim 64: one step on the card
+   (flash as its CUDA-core kernel with its LSE) against the same step on
+   the CPU -- loss and gradients within 1e-5, and the card's new
+   parameters against the CPU optimizer fed the card's gradients -- and
+   ``launch.train --preempt-at 3`` resumed through ``Checkpointer``
+   giving the losses of an uninterrupted run bit for bit; (a) on the
+   inputs (b)-(c) launched flash and the scan with: each flash shape's
+   forward against its plain version (bf16 row limits, lost-tile
+   control), its row LSE against the plain one (``lse_tolerance``), the
+   ``chunked_attention`` Function's dq/dk/dv against autograd through
+   ``flash_attention_plain`` (float32 within 1e-5, bf16 within
+   ``bf16_grad_row_limits``, which a backward that leaves one key chunk
+   out must break), and the scan Function's dx/da against autograd
+   through ``linear_scan_plain``, bit for bit; then the training shape's
+   flash with and without its LSE store and its backward, timed.
+
+Phases 6-9 run in a second process on the same card (this script with
+``--lm-phases``), started after phase 2 and run beside phases 3-5,
+which are host-bound; its output follows phase 5's, and its launch
+counts, errors and times are merged into the record.
 
 Phases 3-4 (for phase 5) and each of 4c-4h record the inputs of
 ``sig_hash`` and ``seg_count`` as they run (``KernelInputs``: a host
@@ -205,11 +242,12 @@ idle share and the kernels that took most of its time.
 
 The last two lines are the ``{"kernels": [...]}`` record -- five routes:
 ``sig_hash``, ``seg_count`` (their launches summed over phases 3-4h),
-``flash_attention`` (bf16, tensor cores; launches of phases 7 and
-7c-7f), ``flash_attention_f32`` (float32, CUDA cores; launches of the
-7b runs and 7e's float32 checks, its time at the largest prefill shape)
-and ``linear_scan`` (launches of phases 7, 7c and 7f) -- and the
-``{"ok": true, "device": ...}`` line.
+``flash_attention`` (bf16, tensor cores; launches of phases 7, 7c-7f
+and 9b-9c), ``flash_attention_f32`` (float32, CUDA cores; launches of
+the 7b runs, 7e's float32 checks and 9d, its time at the largest
+prefill shape) and ``linear_scan`` (launches of phases 7, 7c, 7f and
+9c-9d, the backward's reverse scans among them) -- and the ``{"ok":
+true, "device": ...}`` line.
 Without CUDA, or without the package beside this file, it exits
 non-zero and prints no result.
 """
@@ -304,6 +342,11 @@ LM_SHARED = 2048
 LM_OWN = 256
 LM_NEW = 16
 LM_CHUNK = 256
+
+
+# launches of each kernel on the main paths (phases 3-4h; 6-9 in the
+# second process, merged in)
+TOTALS = {"sig_hash": 0, "seg_count": 0}
 
 
 def log(msg: str) -> None:
@@ -2440,8 +2483,8 @@ def lm_kernel_parity(dev) -> None:
 
 class Recorder:
     """Wraps ``ops.attention`` and ``ops.linear_scan`` (what the blocks
-    call) and keeps a copy of the inputs of the first call of each
-    distinct shape; the wrapped call itself runs unchanged."""
+    call) and keeps a copy (detached) of the inputs of the first call of
+    each distinct shape; the wrapped call itself runs unchanged."""
 
     def __init__(self):
         from repro_torch.kernels import ops
@@ -2455,14 +2498,15 @@ class Recorder:
         key = (tuple(q.shape), tuple(k.shape), str(q.dtype),
                tuple(sorted(kw.items())))
         if key not in self.flash:
-            self.flash[key] = (q.clone(), k.clone(), v.clone(), dict(kw))
+            self.flash[key] = tuple(t.detach().clone() for t in (q, k, v)) \
+                + (dict(kw),)
         return self.orig["attention"](q, k, v, **kw)
 
     def _linear_scan(self, x, a, h0=None):
         key = (tuple(x.shape), str(x.dtype), h0 is None)
         if key not in self.scan:
-            self.scan[key] = (x.clone(), a.clone(),
-                              None if h0 is None else h0.clone())
+            self.scan[key] = (x.detach().clone(), a.detach().clone(),
+                              None if h0 is None else h0.detach().clone())
         return self.orig["linear_scan"](x, a, h0)
 
     def __enter__(self):
@@ -2545,7 +2589,8 @@ def build_lm(cfg, dev):
 def lm_serve(dev, arch: str):
     """Phase 7 (recurrentgemma-2b), 7c (qwen2-0.5b, mamba2-780m) and 7d
     (moonshot-v1-16b-a3b): the LM serve path of ``arch`` at full width
-    (7c's at the depth of ``LM_DEPTH``).  Returns (launch counts of the run, the recorder)."""
+    (7c's at the depth of ``LM_DEPTH``).  Returns (launch counts of the
+    run, the recorder)."""
     import dataclasses
 
     import numpy as np
@@ -3101,69 +3146,520 @@ def lm_path_parity_and_times(recs: dict) -> dict:
                             f"as float32 {kw}")
     f32 = flash_times(q, k, v, kw)
     del q, k, v
+    # and at head size 128: internvl2-2b's prefill
+    q, k, v, kw = max(recs["internvl2-2b"].flash.values(),
+                      key=lambda r: r[0].numel())
+    q, k, v = q.float(), k.float(), v.float()
+    flash_case(q, k, v, kw, f"internvl2-2b path q {tuple(q.shape)} kv "
+                            f"{tuple(k.shape)} as float32 {kw}")
+    flash_times(q, k, v, kw)
+    del q, k, v
     torch.cuda.empty_cache()
     return {"flash_attention": flash[0], "flash_attention_f32": f32,
             "linear_scan": scan[0]}
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--n-triples", type=int, default=10_000_000)
-    args = ap.parse_args()
-    t_start = time.perf_counter()
+# ---------------------------------------------------------------------------
+# phase 9: training
+# ---------------------------------------------------------------------------
+
+# 9b: qwen2-0.5b at published width and depth, configs/shapes.py's
+# train_4k sequence length with its global batch of 256 cut to 8 (time),
+# the optimizer launch.train builds, one untimed step then TRAIN_TIMED
+# timed ones on one repeated batch
+TRAIN_ARCH = "qwen2-0.5b"
+TRAIN_SEQ = 4096
+TRAIN_BATCH = 8
+TRAIN_TIMED = 5
+TRAIN_LR = dict(base_lr=3e-4, warmup=10, total=100)
+# 9c: the other families at published width, 7f's depth, one step
+TRAIN_SWEEP = ("recurrentgemma-2b", "mamba2-780m", "moonshot-v1-16b-a3b",
+               "whisper-medium", "internvl2-2b")
+TRAIN_SWEEP_BATCH = 2
+TRAIN_SWEEP_SEQ = 512
+# 9d: reduced float32 configs at head_dim 64, card against CPU
+TRAIN_F32 = ("qwen2-0.5b", "recurrentgemma-2b")
+TRAIN_F32_TOL = 1e-5
+
+
+class FirstGrads:
+    """A ``compress_fn`` (the train step's gradient hook) that keeps the
+    gradients of the first step it sees and holds them to: every
+    parameter's finite and not all zero (a kernel autograd cannot see
+    would leave its inputs' weights without one)."""
+
+    def __init__(self, what: str):
+        self.what = what
+        self.grads = None
+
+    def __call__(self, grads):
+        import torch
+        if self.grads is None:
+            flat = [(k, t) for k, g in grads.items()
+                    for t in (g if isinstance(g, list) else [g])]
+            ok = torch.stack([torch.isfinite(t).all() & (t != 0).any()
+                              for _, t in flat]).cpu()
+            bad = [k for (k, _), good in zip(flat, ok.tolist()) if not good]
+            assert not bad, f"{self.what}: no finite nonzero gradient for " \
+                f"{len(bad)} of {len(flat)} parameters: {bad[:8]}"
+            log(f"  {self.what}: all {len(flat)} parameter tensors got a "
+                f"finite, nonzero gradient in the first step")
+            self.grads = grads
+        return grads
+
+
+def train_batch(cfg, batch: int, seq: int, dev) -> dict:
+    """``LMPipeline.batch_at(0)`` (seed SEED) on ``dev``, with seeded
+    frontend embeddings for the stubs."""
+    import torch
+    from repro_torch.data.lm_pipeline import LMPipeline, PipelineSpec
+
+    pipe = LMPipeline(PipelineSpec(cfg.vocab_size, seq, batch, seed=SEED))
+    out = {k: torch.from_numpy(v).to(dev) for k, v in
+           pipe.batch_at(0).items()}
+    if cfg.frontend != "none":
+        _, frames, _ = stub_inputs(cfg, batch, 1, dev)
+        out["frontend"] = frames.to(getattr(torch, cfg.dtype))
+    return out
+
+
+def flash_calls(cfg) -> int:
+    """Flash calls of one forward of ``cfg``: each attention layer, a
+    decoder's cross-attention, each encoder layer."""
+    n = sum(k in ("attn", "local") for k in cfg.pattern)
+    return n * (2 if cfg.encoder_layers else 1) + cfg.encoder_layers
+
+
+def train_full(dev) -> tuple[dict[str, int], object]:
+    """Phase 9b: qwen2-0.5b at published width and depth.  Returns (the
+    launch counts of the run, its recorder)."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.train import make_optimizer, make_train_step
+    from repro_torch.train.train_step import init_train_state
+
+    cfg = get_arch(TRAIN_ARCH)
+    assert cfg.remat and cfg.dtype == "bfloat16", cfg
+    model = build_lm(cfg, dev)
+    opt = make_optimizer(cfg, **TRAIN_LR)
+    hook = FirstGrads(cfg.name)
+    step = make_train_step(model, opt, grad_accum=cfg.grad_accum,
+                           compress_fn=hook)
+    batch = train_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, dev)
+    state = [init_train_state(model, opt)]
+    losses, gnorms, secs = [], [], []
+
+    def one():
+        t0 = time.perf_counter()
+        state[0], m = step(state[0], batch)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        secs.append(time.perf_counter() - t0)
+
+    per_step = 2 * flash_calls(cfg)          # forward + remat recompute
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    with Recorder() as rec:
+        one()                                                 # untimed
+    assert hook.grads is not None
+    hook.grads = ()                          # keep no gradient alive
+    first = flash_kernel_launches()
+    log(f"train {cfg.name}: first step {secs[0]:.2f} s, flash launches "
+        f"{first} ({flash_calls(cfg)} forward + {flash_calls(cfg)} remat "
+        f"recompute expected)")
+    assert first == {"tensor_core": per_step, "cuda_core": 0}, first
+    for _ in range(TRAIN_TIMED):
+        one()
+    peak = torch.cuda.max_memory_allocated(dev)
+    timed = secs[1:]
+    mean = sum(timed) / len(timed)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    log(f"train {cfg.name} (published width, {cfg.n_layers} layers, remat, "
+        f"{cfg.optimizer}, batch {TRAIN_BATCH} x {TRAIN_SEQ}): step "
+        f"{mean * 1e3:.1f} ms mean over {TRAIN_TIMED} timed steps "
+        f"({', '.join(f'{x * 1e3:.1f}' for x in timed)}), "
+        f"{tokens / mean:.0f} tokens/s, peak {peak / 2**30:.2f} GiB; losses "
+        f"{', '.join(f'{x:.4f}' for x in losses)}; grad norms "
+        f"{', '.join(f'{x:.4f}' for x in gnorms)}")
+    profile_window(f"train step {cfg.name}", one)
+    launched = read_launches(("flash_attention", "linear_scan"))
+    kinds = flash_kernel_launches()
+    n_steps = len(secs)
+    assert kinds == {"tensor_core": per_step * n_steps, "cuda_core": 0}, \
+        (kinds, n_steps)
+    assert launched["linear_scan"] == 0, launched
+    assert all(math.isfinite(x) for x in losses + gnorms), (losses, gnorms)
+    assert losses[-1] < losses[0], f"the loss did not fall: {losses}"
+    del model, opt, step, state, batch
+    torch.cuda.empty_cache()
+    return launched, rec
+
+
+def train_sweep(dev) -> tuple[dict[str, int], dict]:
+    """Phase 9c: every other family at published width and 7f's depth,
+    one train step at TRAIN_SWEEP_BATCH x TRAIN_SWEEP_SEQ.  Returns the
+    launch counts summed over the configs and each one's recorder."""
+    import dataclasses
 
     import torch
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    if not torch.cuda.is_available():
-        print("chip_smoke: CUDA is not available", file=sys.stderr)
-        return 2
-    if not (ROOT / "src" / "repro_torch").is_dir():
-        print("chip_smoke: src/repro_torch not found beside this script",
-              file=sys.stderr)
-        return 2
-    sys.path.insert(0, str(ROOT / "src"))
-    dev = torch.device("cuda", 0)
+    from repro_torch.configs import ARCHS
+    from repro_torch.train import make_optimizer, make_train_step
+    from repro_torch.train.train_step import init_train_state
 
-    # phase 1: the card and the build
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    log(card)
-    log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python "
-        f"{sys.version.split()[0]}")
-    from repro_torch.kernels import build
-    # a build dir of its own, emptied first: every run compiles, so the
-    # ptxas lines below are always read
-    build.BUILD_DIR = ROOT / "build" / "chip_smoke_kernels"
-    shutil.rmtree(build.BUILD_DIR, ignore_errors=True)
+    totals = {"flash_attention": 0, "linear_scan": 0}
+    recs = {}
+    for name in TRAIN_SWEEP:
+        t0 = time.perf_counter()
+        full = ARCHS[name]
+        cfg = dataclasses.replace(
+            full, n_layers=max(SWEEP_LAYERS, len(full.layer_pattern)),
+            encoder_layers=min(full.encoder_layers, SWEEP_LAYERS))
+        model = build_lm(cfg, dev)
+        opt = make_optimizer(cfg, **TRAIN_LR)
+        hook = FirstGrads(name)
+        step = make_train_step(model, opt, compress_fn=hook)
+        batch = train_batch(cfg, TRAIN_SWEEP_BATCH, TRAIN_SWEEP_SEQ, dev)
+        torch.cuda.synchronize()
+        reset_launches()
+        with Recorder() as rec:
+            _, m = step(init_train_state(model, opt), batch)
+            metrics = {k: float(v) for k, v in m.items()}
+        launched = read_launches(("flash_attention", "linear_scan"))
+        kinds = flash_kernel_launches()
+        n_rec = sum(k in ("rglru", "ssd") for k in cfg.pattern)
+        log(f"train sweep {name}: {lm_layers(cfg)} layers, encoder "
+            f"{cfg.encoder_layers}, batch {TRAIN_SWEEP_BATCH} x "
+            f"{TRAIN_SWEEP_SEQ}: {metrics}, launches {launched}, flash "
+            f"{kinds}, peak {torch.cuda.max_memory_allocated(dev) / 2**30:.2f}"
+            f" GiB, {time.perf_counter() - t0:.1f} s")
+        assert all(math.isfinite(v) for v in metrics.values()), metrics
+        if cfg.n_experts:
+            assert metrics["aux"] > 0, metrics
+        # flash: forward + recompute per call; the scan: forward,
+        # recompute and the reverse scan of the backward per layer
+        assert kinds == {"tensor_core": 2 * flash_calls(cfg),
+                         "cuda_core": 0}, (name, kinds)
+        assert launched["linear_scan"] == 3 * n_rec, (name, launched)
+        for k in totals:
+            totals[k] += launched[k]
+        recs[f"{name} (train)"] = rec
+        hook.grads = ()
+        del model, opt, step, batch
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    return totals, recs
+
+
+def train_f32(dev) -> dict[str, int]:
+    """Phase 9d: the reduced float32 configs of TRAIN_F32 at head_dim 64:
+    one train step on the card (flash's float32 kernel with its LSE, the
+    scan forward and reverse) against the same step on the CPU (the plain
+    versions); then ``launch.train --preempt-at`` resumed through
+    ``Checkpointer`` against an uninterrupted run, bit for bit.  Returns
+    the launch counts."""
+    import tempfile
+
+    import torch
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import LM
+    from repro_torch.train import make_optimizer, make_train_step
+    from repro_torch.train.optimizer import whole
+    from repro_torch.train.train_step import init_train_state
+
+    totals = {"flash_attention_f32": 0, "linear_scan": 0}
+    for name in TRAIN_F32:
+        cfg = reduced(get_arch(name), head_dim=64)
+        init = LM(cfg, device="cpu",
+                  generator=torch.Generator().manual_seed(SEED)).state_dict()
+        batch = train_batch(cfg, 2, 64, "cpu")
+        runs = []
+        reset_launches()
+        for i, where in enumerate((dev, torch.device("cpu"))):
+            model = LM(cfg, device=where)
+            model.load_state_dict(init)
+            opt = make_optimizer(cfg, **TRAIN_LR)
+            hook = FirstGrads(f"{name} float32 on {where.type}")
+            state, m = make_train_step(model, opt, compress_fn=hook)(
+                init_train_state(model, opt),
+                {k: v.to(where) for k, v in batch.items()})
+            runs.append((float(m["loss"]), hook.grads, state))
+            if i == 0:                                       # the card's
+                launched = read_launches(("linear_scan",))
+                kinds = flash_kernel_launches()
+        (lc, gc, sc), (lh, gh, _) = runs
+        worst = max(float((whole(gc[k]).cpu() - whole(gh[k])).abs().max())
+                    for k in gh)
+        # the card's new parameters against the CPU optimizer fed the
+        # card's gradients (AdamW's first step, lr g / (|g| + 1e-8), is
+        # ill-conditioned for |g| near 1e-7: each side's own gradients
+        # would move such an element by different fractions of lr)
+        model = LM(cfg, device="cpu")
+        model.load_state_dict(init)
+        ref_state = init_train_state(model, make_optimizer(cfg, **TRAIN_LR))
+        opt = make_optimizer(cfg, **TRAIN_LR)
+        opt.update({k: [t.cpu() for t in g] if isinstance(g, list)
+                    else g.cpu() for k, g in gc.items()},
+                   ref_state.opt, ref_state.params, 0)
+        worst_p = max(float((whole(sc.params[k]).detach().cpu() -
+                             whole(ref_state.params[k]).detach()).abs().max())
+                      for k in ref_state.params)
+        log(f"train float32 {name} (reduced, head_dim 64): loss card "
+            f"{lc:.7f} cpu {lh:.7f}, max |grad delta| {worst:.3g}, max "
+            f"|new param delta| {worst_p:.3g} (tolerance "
+            f"{TRAIN_F32_TOL}); flash {kinds}, scan {launched}")
+        assert abs(lc - lh) <= TRAIN_F32_TOL and worst <= TRAIN_F32_TOL \
+            and worst_p <= TRAIN_F32_TOL, (name, lc, lh, worst, worst_p)
+        assert kinds["tensor_core"] == 0 and kinds["cuda_core"] == \
+            2 * flash_calls(cfg), kinds
+        n_rec = sum(k in ("rglru", "ssd") for k in cfg.pattern)
+        assert launched["linear_scan"] == 3 * n_rec, launched
+        totals["flash_attention_f32"] += kinds["cuda_core"]
+        totals["linear_scan"] += launched["linear_scan"]
+
+        # a preempted run resumed from its checkpoint
+        argv = ["--arch", name, "--reduced", "--device", "cuda", "--steps",
+                "6", "--batch", "2", "--seq", "64", "--ckpt-every", "3",
+                "--log-every", "100"]
+        reset_launches()
+        with tempfile.TemporaryDirectory() as a, \
+                tempfile.TemporaryDirectory() as b, \
+                contextlib.redirect_stdout(sys.stderr):
+            whole_run = launch_train.main(argv + ["--ckpt-dir", a])
+            first = launch_train.main(argv + ["--ckpt-dir", b,
+                                              "--preempt-at", "3"])
+            rest = launch_train.main(argv + ["--ckpt-dir", b])
+        kinds = flash_kernel_launches()
+        launched = read_launches(("linear_scan",))
+        log(f"train resume {name}: uninterrupted {whole_run['losses']}, "
+            f"preempted {first['losses']} + resumed {rest['losses']}")
+        assert first["preempted"] and \
+            first["losses"] + rest["losses"] == whole_run["losses"], \
+            "the resumed losses differ from the uninterrupted run's"
+        assert kinds["tensor_core"] == 0 and kinds["cuda_core"] > 0, kinds
+        totals["flash_attention_f32"] += kinds["cuda_core"]
+        totals["linear_scan"] += launched["linear_scan"]
+    return totals
+
+
+def train_attention_case(q, k, v, kw: dict, what: str,
+                         control: bool = False) -> None:
+    """Phase 9a at one recorded shape: the kernel's row LSE against the
+    plain one (``lse_tolerance``); the Function's (dq, dk, dv) against
+    autograd through ``flash_attention_plain`` on the same inputs --
+    float32 within TRAIN_F32_TOL, bf16 within ``bf16_grad_row_limits``,
+    which a backward that leaves one key chunk out must break.  The plain
+    side runs one batch row at a time."""
+    import torch
+    from repro_torch.kernels import chunked_attention as ca
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+
+    gen = torch.Generator(device=q.device).manual_seed(SEED)
+    dout = torch.randn(q.shape, generator=gen, device=q.device,
+                       dtype=torch.float32).to(q.dtype)
+    out, lse = flash_attention(q, k, v, return_lse=True, **kw)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    got = torch.autograd.grad(ca.chunked_attention(*leaves, **kw), leaves,
+                              dout)
+    lost = None
+    if control:
+        s = k.shape[2]
+        kc = ca._pick_chunk(s, ca.TRAIN_CHUNK)
+        lo = s // 2 // kc * kc
+        real = ca._rows
+        ca._rows = lambda t_, s_, k0, k1, c, w: (
+            (0, 0) if k0 == lo else real(t_, s_, k0, k1, c, w))
+        try:
+            lost = ca.attention_bwd(q, k, v, out, lse, dout, **kw)
+        finally:
+            ca._rows = real
+    bf16 = q.dtype == torch.bfloat16
+    lse_tol = ca.lse_tolerance(k.shape[2])
+    worst_lse, worst, broke = 0.0, [0.0, 0.0, 0.0], [False] * 3
+    for i in range(q.shape[0]):
+        sl = slice(i, i + 1)
+        _, plse = flash_attention_plain(q[sl], k[sl], v[sl],
+                                        return_lse=True, **kw)
+        worst_lse = max(worst_lse, float((lse[sl] - plse).abs().max()))
+        pl = [x[sl].clone().requires_grad_() for x in (q, k, v)]
+        want = torch.autograd.grad(flash_attention_plain(*pl, **kw), pl,
+                                   dout[sl])
+        limits = (ca.bf16_grad_row_limits(q[sl], k[sl], v[sl], dout[sl],
+                                          want, out[sl], lse[sl], **kw)
+                  if bf16 else (TRAIN_F32_TOL,) * 3)
+        for j in range(3):
+            delta = (got[j][sl].float() - want[j].float()).abs() \
+                .amax(-1, keepdim=True)
+            worst[j] = max(worst[j], float((delta / (
+                limits[j].clamp_min(1e-30) if bf16 else limits[j])).max()))
+            if lost is not None:
+                ld = (lost[j][sl].float() - want[j].float()).abs() \
+                    .amax(-1, keepdim=True)
+                broke[j] |= bool((ld > limits[j]).any())
+        del want, pl, limits
+    log(f"  train {what}: LSE max |delta| {worst_lse:.3g} (tolerance "
+        f"{lse_tol:.3g}); dq/dk/dv worst row "
+        f"{', '.join(f'{w:.3f}' for w in worst)} of its "
+        f"{'row limit' if bf16 else f'tolerance {TRAIN_F32_TOL}'}"
+        + (f"; a chunk left out of the backward breaks dq/dk/dv: {broke}"
+           if control else ""))
+    assert worst_lse <= lse_tol, (what, worst_lse)
+    assert max(worst) <= 1.0, (what, worst)
+    if control:
+        assert all(broke), f"the gradient limits cannot see a lost chunk " \
+            f"({what}: {broke})"
+
+
+def train_scan_case(x, a, h0, what: str) -> None:
+    """Phase 9a for the scan: the Function's (dx, da, dh0) on the card (a
+    forward and a reverse launch) against autograd through
+    ``linear_scan_plain``, bit for bit."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.linear_scan import linear_scan_plain
+
+    gen = torch.Generator(device=x.device).manual_seed(SEED)
+    dhs = torch.randn(x.shape, generator=gen, device=x.device,
+                      dtype=torch.float32).to(x.dtype)
+    dlast = torch.randn((x.shape[0], x.shape[2]), generator=gen,
+                        device=x.device)
+    grads = []
+    for fn in (ops.linear_scan, linear_scan_plain):
+        leaves = [t.clone().requires_grad_() for t in (x, a, h0)
+                  if t is not None]
+        hs, last = fn(*leaves) if h0 is not None else fn(*leaves, None)
+        grads.append(torch.autograd.grad((hs, last), leaves, (dhs, dlast)))
+    same = [torch.equal(g, w) for g, w in zip(*grads)]
+    log(f"  train {what}: dx/da{'/dh0' if h0 is not None else ''} bit for "
+        f"bit {same}")
+    assert all(same), (what, same)
+
+
+def train_parity(recs: dict) -> None:
+    """Phase 9a over the recorders of 9b-9c: each flash shape's forward
+    (``flash_case``, with its lost-tile control for bf16), LSE and
+    gradients (with the lost-chunk control for bf16), each scan shape's
+    gradients; then the times of the training shape's forward with and
+    without the LSE store and of its backward."""
+    import torch
+    from repro_torch.kernels import chunked_attention as ca
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    for arch, rec in recs.items():
+        for q, k, v, kw in rec.flash.values():
+            what = (f"{arch} q {tuple(q.shape)} kv {tuple(k.shape)} "
+                    f"{q.dtype} {kw}")
+            flash_case(q, k, v, kw, what, control=q.dtype == torch.bfloat16)
+            train_attention_case(q, k, v, kw, what,
+                                 control=q.dtype == torch.bfloat16)
+            torch.cuda.empty_cache()
+        for x, a, h0 in rec.scan.values():
+            train_scan_case(x, a, h0, f"{arch} scan x {tuple(x.shape)} "
+                                      f"h0={h0 is not None}")
+    q, k, v, kw = max((r for rec in recs.values()
+                       for r in rec.flash.values()),
+                      key=lambda r: r[0].numel())
+    dout = torch.ones_like(q)
+    out, lse = flash_attention(q, k, v, return_lse=True, **kw)
+    log(f"train attention at q {tuple(q.shape)} {q.dtype} {kw}: flash "
+        f"forward {time_ms(lambda: flash_attention(q, k, v, **kw), 10, 2):.4f}"
+        f" ms, with its LSE "
+        f"{time_ms(lambda: flash_attention(q, k, v, return_lse=True, **kw), 10, 2):.4f}"
+        f" ms; backward (plain torch, float32) "
+        f"{time_ms(lambda: ca.attention_bwd(q, k, v, out, lse, dout, **kw), 3, 1):.4f}"
+        " ms")
+
+
+def lm_phases(dev) -> dict:
+    """Phases 6-9: the LM kernels' parity, the LM serve paths, their
+    kernels on the paths' inputs, training.  Returns what the record
+    needs of the LM routes: launch totals, errors, limits, cases and
+    times."""
+    import torch
+
+    # phase 6
     t0 = time.perf_counter()
-    lib = build.build()
-    build.library()
-    log(f"kernels built from {build.CSRC.relative_to(ROOT)} "
-        f"({', '.join(build.SOURCES)}) -> {lib.relative_to(ROOT)} in "
+    lm_kernel_parity(dev)
+    log(f"lm kernel parity phase: {time.perf_counter() - t0:.1f} s")
+
+    # phases 7 (the hybrid stack), 7c (the dense and the SSM stack), 7d
+    # (MoE) and 7b (each in float32, reduced), 7e (the frontend stubs
+    # through serve_step, and in float32) and 7f (every config, 2
+    # layers): each path's counts start at 0 and are summed in after it
+    totals = dict(flash_attention=0, linear_scan=0, flash_attention_f32=0)
+    recs = {}
+    for arch in LM_ARCHS + STUB_ARCHS:
+        t0 = time.perf_counter()
+        serve, parity = ((lm_serve, lm_policy_parity_f32)
+                         if arch in LM_ARCHS else
+                         (stub_serve, stub_parity_f32))
+        lm_launches, recs[arch] = serve(dev, arch)
+        for name, n in lm_launches.items():
+            totals[name] += n
+        torch.cuda.empty_cache()
+        # the float32 serve path is the float32 kernel's own path
+        totals["flash_attention_f32"] += parity(dev, arch)["cuda_core"]
+        torch.cuda.empty_cache()
+        log(f"lm serve phase, {arch}: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    sweep_launches, sweep_recs = arch_sweep(dev)
+    for name, n in sweep_launches.items():
+        totals[name] += n
+    recs.update(sweep_recs)
+    del sweep_recs
+    log(f"lm sweep phase (every config, {SWEEP_LAYERS} layers): "
         f"{time.perf_counter() - t0:.1f} s")
-    kernel, seen = "", set()
-    for line in build.BUILD_LOG.splitlines():
-        m = re.search(r"entry function '(\w+)'", line)
-        if m:
-            kernel = kernel_name(m.group(1))
-        elif "registers" in line or "spill" in line:
-            log(f"  ptxas {kernel}: {line.strip()}")
-            assert "spill" not in line or \
-                "0 bytes spill stores, 0 bytes spill loads" in line, \
-                f"{kernel} spills registers"
-            seen.add(kernel.split("I")[0])
-    assert seen == {"sig_hash_kernel", "seg_count_kernel", "flash_fwd_kernel",
-                    "flash_sm90_kernel", "linear_scan_kernel"}, seen
 
-    # phase 2
+    # phase 8
     t0 = time.perf_counter()
-    kernel_parity(dev)
-    log(f"parity phase: {time.perf_counter() - t0:.1f} s")
+    times = lm_path_parity_and_times(recs)
+    del recs
+    log(f"lm path parity and timing phase: {time.perf_counter() - t0:.1f} s")
 
-    # phase 3
+    # phase 9: training (9b qwen2 at full width and depth, 9c the other
+    # families, 9d float32 card against CPU and the resume, 9a the
+    # kernels on what 9b-9c launched them with)
+    t_train = time.perf_counter()
+    launched, rec = train_full(dev)
+    for name, n in launched.items():
+        totals[name] += n
+    train_recs = {TRAIN_ARCH + " (train)": rec}
+    log(f"train phase 9b: {time.perf_counter() - t_train:.1f} s")
+    t0 = time.perf_counter()
+    launched, recs9 = train_sweep(dev)
+    for name, n in launched.items():
+        totals[name] += n
+    train_recs.update(recs9)
+    log(f"train phase 9c: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    for name, n in train_f32(dev).items():
+        totals[name] += n
+    log(f"train phase 9d: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    train_parity(train_recs)
+    del train_recs, recs9, rec
+    torch.cuda.empty_cache()
+    log(f"train phase 9a: {time.perf_counter() - t0:.1f} s; phase 9: "
+        f"{time.perf_counter() - t_train:.1f} s")
+
+    names = tuple(totals)
+    return {"totals": totals, "times": times,
+            "err": {n: ERR[n] for n in names},
+            "limit": {n: LIMIT[n] for n in names},
+            "cases": {n: CASES[n] for n in names}}
+
+
+def compaction_phases(args, dev) -> dict:
+    """Phases 3-5: the compaction main path at ``args.n_triples``, its
+    queries, the compressed tier, gSpan, mutations, the online service,
+    the crash sweep, BGP and the graph server, the sharded path, and the
+    compaction kernels on the paths' inputs.  Adds the kernels' launches
+    into ``TOTALS``; returns their times."""
+    import torch
+
+    totals = TOTALS
     from repro_torch.data.synthetic import WorkloadSpec, generate_workload
     t0 = time.perf_counter()
     store = generate_workload(WorkloadSpec(shape="sensor",
@@ -3172,7 +3668,6 @@ def main() -> int:
     log(f"workload: sensor, n_triples target {args.n_triples}, "
         f"{store.n_triples} triples, {len(store.dict)} terms, generated in "
         f"{time.perf_counter() - t0:.1f} s")
-    totals = {"sig_hash": 0, "seg_count": 0}
     # phases 3-4 record the kernels' inputs for phase 5
     with KernelInputs() as main_inputs:
         runs = compaction(store, totals)
@@ -3231,44 +3726,100 @@ def main() -> int:
     del store, runs, gd_comp, main_inputs
     torch.cuda.empty_cache()
 
-    # phase 6
-    t0 = time.perf_counter()
-    lm_kernel_parity(dev)
-    log(f"lm kernel parity phase: {time.perf_counter() - t0:.1f} s")
+    return times
 
-    # phases 7 (the hybrid stack), 7c (the dense and the SSM stack), 7d
-    # (MoE) and 7b (each in float32, reduced), 7e (the frontend stubs
-    # through serve_step, and in float32) and 7f (every config, 2
-    # layers): each path's counts start at 0 and are summed in after it
-    totals.update(flash_attention=0, linear_scan=0, flash_attention_f32=0)
-    recs = {}
-    for arch in LM_ARCHS + STUB_ARCHS:
-        t0 = time.perf_counter()
-        serve, parity = ((lm_serve, lm_policy_parity_f32)
-                         if arch in LM_ARCHS else
-                         (stub_serve, stub_parity_f32))
-        lm_launches, recs[arch] = serve(dev, arch)
-        for name, n in lm_launches.items():
-            totals[name] += n
-        torch.cuda.empty_cache()
-        # the float32 serve path is the float32 kernel's own path
-        totals["flash_attention_f32"] += parity(dev, arch)["cuda_core"]
-        torch.cuda.empty_cache()
-        log(f"lm serve phase, {arch}: {time.perf_counter() - t0:.1f} s")
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--n-triples", type=int, default=10_000_000)
+    ap.add_argument("--lm-phases", metavar="JSON", default=None,
+                    help=argparse.SUPPRESS)   # the second process's role
+    args = ap.parse_args()
+    t_start = time.perf_counter()
+
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print("chip_smoke: src/repro_torch not found beside this script",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    dev = torch.device("cuda", 0)
+    if args.lm_phases:                       # the second process: 6-9
+        from repro_torch.kernels import build
+        build.BUILD_DIR = ROOT / "build" / "chip_smoke_kernels"
+        build.library()                      # built by the first process
+        Path(args.lm_phases).write_text(json.dumps(lm_phases(dev)))
+        return 0
+
+    # phase 1: the card and the build
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    log(card)
+    log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python "
+        f"{sys.version.split()[0]}")
+    from repro_torch.kernels import build
+    # a build dir of its own, emptied first: every run compiles, so the
+    # ptxas lines below are always read
+    build.BUILD_DIR = ROOT / "build" / "chip_smoke_kernels"
+    shutil.rmtree(build.BUILD_DIR, ignore_errors=True)
     t0 = time.perf_counter()
-    sweep_launches, sweep_recs = arch_sweep(dev)
-    for name, n in sweep_launches.items():
-        totals[name] += n
-    recs.update(sweep_recs)
-    del sweep_recs
-    log(f"lm sweep phase (every config, {SWEEP_LAYERS} layers): "
+    lib = build.build()
+    build.library()
+    log(f"kernels built from {build.CSRC.relative_to(ROOT)} "
+        f"({', '.join(build.SOURCES)}) -> {lib.relative_to(ROOT)} in "
         f"{time.perf_counter() - t0:.1f} s")
+    kernel, seen = "", set()
+    for line in build.BUILD_LOG.splitlines():
+        m = re.search(r"entry function '(\w+)'", line)
+        if m:
+            kernel = kernel_name(m.group(1))
+        elif "registers" in line or "spill" in line:
+            log(f"  ptxas {kernel}: {line.strip()}")
+            assert "spill" not in line or \
+                "0 bytes spill stores, 0 bytes spill loads" in line, \
+                f"{kernel} spills registers"
+            seen.add(kernel.split("I")[0])
+    assert seen == {"sig_hash_kernel", "seg_count_kernel", "flash_fwd_kernel",
+                    "flash_sm90_kernel", "linear_scan_kernel"}, seen
 
-    # phase 8
+    # phase 2
     t0 = time.perf_counter()
-    times.update(lm_path_parity_and_times(recs))
-    del recs
-    log(f"lm path parity and timing phase: {time.perf_counter() - t0:.1f} s")
+    kernel_parity(dev)
+    log(f"parity phase: {time.perf_counter() - t0:.1f} s")
+
+    # phases 6-9 (the LM side: kernel parity, serving, training) run in a
+    # second process on the same card, started now, while phases 3-5
+    # (the compaction side, host-bound) run here; its output is printed
+    # after phase 5's
+    lm_json = build.BUILD_DIR / "lm_phases.json"
+    lm_log = build.BUILD_DIR / "lm_phases.log"
+    with open(lm_log, "w") as out:
+        child = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--lm-phases",
+             str(lm_json)], stdout=out, stderr=subprocess.STDOUT)
+    try:
+        times = compaction_phases(args, dev)
+        rc = child.wait()
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    sys.stdout.write(lm_log.read_text())
+    sys.stdout.flush()
+    assert rc == 0, f"the LM phases (6-9) failed: exit {rc}"
+    lm = json.loads(lm_json.read_text())
+    TOTALS.update(lm["totals"])
+    times.update(lm["times"])
+    for name in lm["totals"]:
+        ERR[name], LIMIT[name], CASES[name] = (
+            lm["err"][name], lm["limit"][name], lm["cases"][name])
 
     # the bf16 serve path launches flash_attention as its tensor-core
     # kernel, the float32 one as its CUDA-core kernel
@@ -3278,7 +3829,7 @@ def main() -> int:
     record = {"kernels": [
         {"name": name, "route": "cuda",
          "source": src + source.get(name, f"{name}.cu"),
-         "replaces": replaces, "launches": totals[name],
+         "replaces": replaces, "launches": TOTALS[name],
          "max_abs_err": ERR[name], "ms": times[name]["ms"],
          "plain_ms": times[name]["plain_ms"],
          "bound_ms": times[name]["bound_ms"],

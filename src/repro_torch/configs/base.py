@@ -4,8 +4,10 @@ The port's copy of ``repro/configs/base.py``: the fields the port reads,
 under the same names, and the same :func:`reduced` scaling of them, so
 a configuration here and its JAX twin describe the same network, and
 the same derived sizes (``homogeneous``, ``d_inner``, ``ssm_heads``,
-``n_params`` ...).  The sharding and training-policy fields of the JAX
-schema are left out until a slice reads them.
+``n_params`` ...), and the training policy (``optimizer``,
+``opt_state_dtype``, ``remat``, ``fsdp``, ``grad_accum``).  The JAX
+schema's mesh-layout fields (``tp``, ``seq_shard``) are left out: the
+port trains on one card.
 """
 from __future__ import annotations
 
@@ -51,9 +53,15 @@ class ArchConfig:
     frontend: Literal["none", "audio_stub", "vision_stub"] = "none"
     frontend_tokens: int = 1500         # encoder positions / image patches
     frontend_dim: int = 0               # stub embedding dim (0 -> d_model)
-    # numerics
+    # numerics / memory policy
     dtype: str = "bfloat16"
     param_dtype: str = "bfloat16"
+    optimizer: Literal["adamw", "adafactor"] = "adamw"
+    opt_state_dtype: str = "float32"
+    remat: bool = True                  # recompute each layer in backward
+    # training policy: fsdp keeps the gradient accumulator in param_dtype
+    fsdp: bool = False
+    grad_accum: int = 1                 # microbatch accumulation steps
     tied_embeddings: bool = True
 
     @property
@@ -155,6 +163,8 @@ def reduced(cfg: ArchConfig, **overrides) -> ArchConfig:
         window=min(cfg.window, 32) if cfg.window else None,
         dtype="float32",
         param_dtype="float32",
+        fsdp=False,
+        grad_accum=1,
     )
     scale.update(overrides)
     return dataclasses.replace(cfg, **scale)

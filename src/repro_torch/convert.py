@@ -17,6 +17,11 @@ shape ``(L, ...)``); it is unstacked into ``layers.<i>.attn.wq``:
     tree = jax.tree.map(np.asarray, repro_lm.init(key))   # reference
     model = LM(cfg, device="cpu")
     model.load_state_dict(lm_params_from_jax(cfg, tree))
+
+The same mapping runs the other way for the optimizer, which decides
+per JAX leaf (:func:`jax_leaves` groups a stack's per-layer tensors back
+under the leaf's path), and a JAX ``TrainState`` crosses with
+:func:`train_state_from_jax`.
 """
 from __future__ import annotations
 
@@ -99,3 +104,60 @@ def lm_params_from_jax(cfg, tree) -> dict[str, torch.Tensor]:
             raise ValueError(f"{name}: shape {tuple(t.shape)} != {s.shape}")
         out[name] = t.to(torch_dtype(s.dtype))
     return out
+
+
+def _stacked_path(cfg, name: str) -> str | None:
+    """The JAX leaf a per-layer parameter name belongs to when that leaf
+    is layer-stacked (``layers.3.attn.wq`` -> ``layers.attn.wq`` in a
+    homogeneous stack; the encoder's layers always), else None."""
+    parts = name.split(".")
+    if parts[0] == "layers" and cfg.homogeneous:
+        return ".".join(["layers"] + parts[2:])
+    if parts[:2] == ["encoder", "layers"]:
+        return ".".join(["encoder", "layers"] + parts[3:])
+    return None
+
+
+def jax_leaves(cfg, named: dict) -> dict:
+    """The port's ``{name: tensor}`` (``named_parameters`` order) as the
+    JAX package's leaves: ``{path: tensor}`` for a leaf the JAX tree
+    keeps whole, ``{path: [layer 0's tensor, layer 1's, ...]}`` for a
+    layer-stacked one.  The tensors are the same objects, not copies."""
+    out: dict = {}
+    for name, t in named.items():
+        path = _stacked_path(cfg, name)
+        if path is None:
+            out[name] = t
+        else:
+            out.setdefault(path, []).append((int(name.split(".")[
+                2 if name.startswith("encoder.") else 1]), t))
+    return {k: [t for _, t in sorted(v, key=lambda it: it[0])]
+            if isinstance(v, list) else v for k, v in out.items()}
+
+
+def train_state_from_jax(cfg, state):
+    """A JAX ``TrainState`` (params, AdamW ``m``/``v`` or Adafactor
+    ``vr``/``vc``/``v`` (or either inside ``compressed``'s ``inner``,
+    with its ``ef``), step) as the port's: ``TrainState(params, opt,
+    step)`` with ``params`` a ``state_dict`` for ``LM.load_state_dict``
+    and ``opt`` keyed by JAX leaf path, stacked as the JAX leaves are
+    (the port's optimizers keep it so).  Leaves may be jax or numpy
+    arrays.  Load it with ``train.train_step.load_train_state``."""
+    from .train.train_step import TrainState
+
+    def tensors(tree):
+        return {path: _to_tensor(leaf) for path, leaf in _flatten(tree)}
+
+    def opt_of(opt):
+        if "inner" in opt:
+            return {"inner": opt_of(opt["inner"]), "ef": tensors(opt["ef"])}
+        if "f" in opt:
+            out: dict = {}
+            for path, t in tensors(opt["f"]).items():
+                leaf, kind = path.rsplit(".", 1)
+                out.setdefault(leaf, {})[kind] = t
+            return {"f": out}
+        return {"m": tensors(opt["m"]), "v": tensors(opt["v"])}
+
+    params = lm_params_from_jax(cfg, state.params)
+    return TrainState(params, opt_of(state.opt), int(np.asarray(state.step)))

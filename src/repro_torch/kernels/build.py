@@ -108,7 +108,7 @@ def library() -> ctypes.CDLL:
         lib.repro_seg_count.argtypes = [p, i64, i64, p, p, p]
         lib.repro_seg_count.restype = i32
         for fn in (lib.repro_flash_attention, lib.repro_flash_attention_sm90):
-            fn.argtypes = [p, p, p, p, i64, i32, i32, i64, i64, i32,
+            fn.argtypes = [p, p, p, p, p, i64, i32, i32, i64, i64, i32,
                            ctypes.c_float, i32, i32, p]
             fn.restype = i32
         lib.repro_linear_scan.argtypes = [p, p, p, p, p, i64, i64, i64, i32,

@@ -43,6 +43,12 @@
 // this one masks j >= S itself instead of padding K with zeros, so
 // causal=False on a ragged S matches the reference.
 //
+// Training asks for each row's log-sum-exp of its scaled scores too (the
+// softmax normaliser its backward recomputes P from): lane 0 of a warp,
+// which holds the row's m and reduced l, writes it in the epilogue into a
+// (B, Hq, T) float32 tensor.  A null pointer launches the instantiation
+// compiled without the store (kLse = false).
+//
 // Bound on an H100: 4 * Hq * D flops per attended (q, k) pair (QK^T and
 // PV) against reading q, k, v and writing o once; at recurrentgemma-2b's
 // prefill shape (8, 10, 2304, 256), window 2048, the operations bound it:
@@ -61,6 +67,9 @@ constexpr int kThreads = 256;
 constexpr int kQS = kTQ + 4;    // row stride of Q^T [d][row], P^T [key][row]
 constexpr int kKS = kDC + 4;    // row stride of a K chunk [key][d]
 constexpr float kNeg = -1e30f;
+// the log-sum-exp written for a row with no key to attend: the backward's
+// exp(score - lse) is then exactly 0 on every key of the row
+constexpr float kEmptyLse = 1e30f;
 
 // the O tile's split over the threads: RO rows x NV float4s per thread
 template <int D>
@@ -166,12 +175,12 @@ __device__ __forceinline__ void qk_chunk(const float* kr, const float* qr,
   }
 }
 
-template <int D>
+template <int D, bool kLse>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ out, int hq,
-                 int hkv, int t, int s, float scale, int causal,
-                 int window) {
+                 const float* __restrict__ v, float* __restrict__ out,
+                 float* __restrict__ lse, int hq, int hkv, int t, int s,
+                 float scale, int causal, int window) {
   constexpr int kND = D / kDC;          // K chunks per tile
   using O = OTile<D>;
   extern __shared__ float4 smem4[];
@@ -377,7 +386,16 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   if (lane == 0) {
 #pragma unroll
-    for (int i = 0; i < 8; ++i) l_s[warp * 8 + i] = l[i];
+    for (int i = 0; i < 8; ++i) {
+      l_s[warp * 8 + i] = l[i];
+      // the row's log-sum-exp of its scaled scores, natural log: m is in
+      // base 2; a row with no key gets kEmptyLse
+      const int r = q0 + warp * 8 + i;
+      if (kLse && r < t)
+        lse[(static_cast<int64_t>(b) * hq + h) * t + r] =
+            l[i] > 0.f ? (m[i] + log2f(l[i])) * 0.6931471805599453f
+                       : kEmptyLse;
+    }
   }
   __syncthreads();
 #pragma unroll
@@ -399,10 +417,12 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* out,
-           int64_t b, int hq, int hkv, int64_t t, int64_t s, float scale,
-           int causal, int window, cudaStream_t stream) {
+           void* lse, int64_t b, int hq, int hkv, int64_t t, int64_t s,
+           float scale, int causal, int window, cudaStream_t stream) {
   const int smem = Smem<D>::kFloats * static_cast<int>(sizeof(float));
-  auto kernel = flash_fwd_kernel<D>;
+  // without an LSE tensor, the kernel compiled without its store
+  auto kernel = lse != nullptr ? flash_fwd_kernel<D, true>
+                               : flash_fwd_kernel<D, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -410,7 +430,8 @@ int launch(const void* q, const void* k, const void* v, void* out,
                   static_cast<unsigned>(hq), static_cast<unsigned>(b));
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), hq, hkv,
+      static_cast<const float*>(v), static_cast<float*>(out),
+      static_cast<float*>(lse), hq, hkv,
       static_cast<int>(t), static_cast<int>(s), scale, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
@@ -419,23 +440,24 @@ int launch(const void* q, const void* k, const void* v, void* out,
 
 // q: (B, Hq, T, D); k, v: (B, Hkv, S, D); out: (B, Hq, T, D), all
 // contiguous float32 starting on 16-byte boundaries.  D in {64, 128, 256};
-// window <= 0 means none.  Returns the cudaError_t of the launch (0 on
-// success).
+// window <= 0 means none.  lse: null, or (B, Hq, T) float32 to receive each
+// row's log-sum-exp of its scaled scores (1e30 for a row with no key).
+// Returns the cudaError_t of the launch (0 on success).
 extern "C" int repro_flash_attention(const void* q, const void* k,
-                                     const void* v, void* out, int64_t b,
-                                     int hq, int hkv, int64_t t, int64_t s,
-                                     int d, float scale, int causal,
-                                     int window, void* stream) {
+                                     const void* v, void* out, void* lse,
+                                     int64_t b, int hq, int hkv, int64_t t,
+                                     int64_t s, int d, float scale,
+                                     int causal, int window, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 64:
-      return launch<64>(q, k, v, out, b, hq, hkv, t, s, scale, causal, window,
-                        st);
+      return launch<64>(q, k, v, out, lse, b, hq, hkv, t, s, scale, causal,
+                        window, st);
     case 128:
-      return launch<128>(q, k, v, out, b, hq, hkv, t, s, scale, causal,
+      return launch<128>(q, k, v, out, lse, b, hq, hkv, t, s, scale, causal,
                          window, st);
     case 256:
-      return launch<256>(q, k, v, out, b, hq, hkv, t, s, scale, causal,
+      return launch<256>(q, k, v, out, lse, b, hq, hkv, t, s, scale, causal,
                          window, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -29,7 +29,12 @@
 //    thread (32, 64 or 128 at D = 64, 128, 256).  Shared memory holds the
 //    Q tile and two stages of K and V: 48, 96 or 192 KB.
 //  - Epilogue: O / l in bf16 into the warpgroup's own rows of the Q tile
-//    (no longer read), then a TMA store that clips rows >= T.
+//    (no longer read), then a TMA store that clips rows >= T.  Training
+//    also asks for each row's log-sum-exp of its scaled scores (the
+//    normaliser its backward recomputes P from): the first thread of each
+//    quad, which holds the row's m and reduced l, stores it as float32
+//    into a (B, Hq, T) tensor; a null pointer launches the instantiation
+//    compiled without the store (kLse = false).
 //
 // Every tile sits in shared memory as 64-column sub-tiles (rows x 128
 // bytes, 128-byte swizzle, as TMA writes them), so D = 256 is four
@@ -57,6 +62,8 @@
 namespace {
 
 constexpr int kBM = 128;      // query rows per block: two warpgroups of 64
+// the log-sum-exp stored for a row with no key to attend
+constexpr float kEmptyLse = 1e30f;
 constexpr int kBN = 64;       // keys per KV tile
 constexpr int kStages = 2;    // KV ring depth
 constexpr int kThreads = 384;
@@ -307,13 +314,14 @@ __device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-template <int D>
+template <int D, bool kLse>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                   const __grid_constant__ CUtensorMap tk,
                   const __grid_constant__ CUtensorMap tv,
-                  const __grid_constant__ CUtensorMap to, int hq, int hkv,
-                  int t, int s, float scale_log2, int causal, int window) {
+                  const __grid_constant__ CUtensorMap to,
+                  float* __restrict__ lse, int hq, int hkv, int t, int s,
+                  float scale_log2, int causal, int window) {
   constexpr int kSubs = D / kSub;
   constexpr int kKvBytes = kBN * D * 2;
   constexpr uint32_t kSubKvBytes = kBN * kSub * 2;  // V's sub-tile stride
@@ -486,6 +494,14 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
       inv[r] = l[r] > 0.f ? 1.f / l[r] : 0.f;
+      // the row's log-sum-exp, natural log (m is the raw max score); a
+      // row with no key gets kEmptyLse, so exp(score - lse) is 0 there
+      const int row = q0 + rw + warp * 16 + g + 8 * r;
+      if (kLse && tc == 0 && row < t)
+        lse[(static_cast<int64_t>(b) * hq + h) * t + row] =
+            l[r] > 0.f
+                ? (m[r] * scale_log2 + log2f(l[r])) * 0.6931471805599453f
+                : kEmptyLse;
     }
     // O / l in bf16 into this warpgroup's rows of the Q tile, in the
     // swizzled layout TMA reads: element (r, c) of a sub-tile lies at byte
@@ -550,8 +566,8 @@ bool encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int d,
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* out,
-           int64_t b, int hq, int hkv, int64_t t, int64_t s, float scale,
-           int causal, int window, cudaStream_t stream) {
+           void* lse, int64_t b, int hq, int hkv, int64_t t, int64_t s,
+           float scale, int causal, int window, cudaStream_t stream) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return static_cast<int>(cudaErrorSharedObjectSymbolNotFound);
   CUtensorMap mq, mk, mv, mo;
@@ -560,7 +576,9 @@ int launch(const void* q, const void* k, const void* v, void* out,
       !encode(fn, &mv, v, D, s, b * hkv, kBN) ||
       !encode(fn, &mo, out, D, t, b * hq, kBM / 2))
     return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = flash_sm90_kernel<D>;
+  // without an LSE tensor, the kernel compiled without its store
+  auto kernel = lse != nullptr ? flash_sm90_kernel<D, true>
+                               : flash_sm90_kernel<D, false>;
   const int smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -568,7 +586,8 @@ int launch(const void* q, const void* k, const void* v, void* out,
   const dim3 grid(static_cast<unsigned>((t + kBM - 1) / kBM),
                   static_cast<unsigned>(hq), static_cast<unsigned>(b));
   kernel<<<grid, kThreads, smem, stream>>>(
-      mq, mk, mv, mo, hq, hkv, static_cast<int>(t), static_cast<int>(s),
+      mq, mk, mv, mo, static_cast<float*>(lse), hq, hkv, static_cast<int>(t),
+      static_cast<int>(s),
       scale * 1.4426950408889634f, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
@@ -577,24 +596,25 @@ int launch(const void* q, const void* k, const void* v, void* out,
 
 // q: (B, Hq, T, D); k, v: (B, Hkv, S, D); out: (B, Hq, T, D), all
 // contiguous bfloat16 with 16-byte-aligned bases.  D in {64, 128, 256};
-// window <= 0 means none.  Returns the cudaError_t of the launch (0 on
-// success).
+// window <= 0 means none.  lse: null, or (B, Hq, T) float32 to receive each
+// row's log-sum-exp of its scaled scores (1e30 for a row with no key).
+// Returns the cudaError_t of the launch (0 on success).
 extern "C" int repro_flash_attention_sm90(const void* q, const void* k,
-                                          const void* v, void* out, int64_t b,
-                                          int hq, int hkv, int64_t t,
-                                          int64_t s, int d, float scale,
-                                          int causal, int window,
-                                          void* stream) {
+                                          const void* v, void* out,
+                                          void* lse, int64_t b, int hq,
+                                          int hkv, int64_t t, int64_t s,
+                                          int d, float scale, int causal,
+                                          int window, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 64:
-      return launch<64>(q, k, v, out, b, hq, hkv, t, s, scale, causal, window,
-                        st);
+      return launch<64>(q, k, v, out, lse, b, hq, hkv, t, s, scale, causal,
+                        window, st);
     case 128:
-      return launch<128>(q, k, v, out, b, hq, hkv, t, s, scale, causal,
+      return launch<128>(q, k, v, out, lse, b, hq, hkv, t, s, scale, causal,
                          window, st);
     case 256:
-      return launch<256>(q, k, v, out, b, hq, hkv, t, s, scale, causal,
+      return launch<256>(q, k, v, out, lse, b, hq, hkv, t, s, scale, causal,
                          window, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -31,6 +31,14 @@ kernel's zero padding does count them when ``causal=False`` on a ragged
 S, ROADMAP §3); a row with no key to attend is 0, as the Pallas kernel
 gives and unlike ``mha_ref``'s NaN.
 
+Training asks for each row's log-sum-exp of its scaled scores beside
+the output (``return_lse=True``): a (B, Hq, T) float32 tensor both
+kernels store in their epilogue, where the row's m and l already sit; a
+row with no key to attend gets :data:`EMPTY_LSE`, so the backward's
+``exp(score - lse)`` is exactly 0 on its keys (a ``-inf`` would give
+``+inf``).  Without it the kernels are handed a null pointer and store
+nothing more than before.
+
 Dispatch goes by the tensor's device: a CPU tensor runs
 :func:`flash_attention_plain`, a CUDA tensor launches a kernel (or
 raises).  ``tensor_core_launches`` and ``cuda_core_launches`` count each
@@ -49,6 +57,7 @@ tensor_core_launches = 0     # flash_attention_sm90.cu (bfloat16)
 cuda_core_launches = 0       # flash_attention.cu (float32)
 
 HEAD_DIMS = (64, 128, 256)          # the head sizes the kernels are built for
+EMPTY_LSE = 1e30                    # the LSE of a row with no key to attend
 # C entry of the kernel for each input type
 KERNELS = {torch.bfloat16: "repro_flash_attention_sm90",
            torch.float32: "repro_flash_attention"}
@@ -84,15 +93,23 @@ def kernel_for(dtype: torch.dtype, d: int) -> str:
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          *, causal: bool = True,
-                          window: int | None = None) -> torch.Tensor:
+                          *, causal: bool = True, window: int | None = None,
+                          return_lse: bool = False):
     """What the kernel computes, in plain torch (materializes the (B, Hq,
     T, S) scores).  Same arguments and result as :func:`flash_attention`."""
     _check_args(q, k, v, window)
     out = ref.mha_ref(q, k, v, causal=causal, window=window)
     mask = ref.attention_mask(q.shape[2], k.shape[2], causal, window,
                               q.device)
-    return torch.where(mask.any(dim=-1)[:, None], out, 0)
+    out = torch.where(mask.any(dim=-1)[:, None], out, 0)
+    if not return_lse:
+        return out
+    group = q.shape[1] // k.shape[1]
+    scores = torch.einsum("bhtd,bhsd->bhts", q.float(),
+                          k.repeat_interleave(group, dim=1).float()) \
+        * (1.0 / q.shape[3] ** 0.5)
+    lse = torch.logsumexp(scores.masked_fill_(~mask, float("-inf")), -1)
+    return out, torch.where(mask.any(dim=-1), lse, EMPTY_LSE)
 
 
 def bf16_row_limit(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -128,17 +145,19 @@ def bf16_row_limit(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True,
-                    window: int | None = None) -> torch.Tensor:
+                    causal: bool = True, window: int | None = None,
+                    return_lse: bool = False):
     """q: (B, Hq, T, D); k, v: (B, Hkv, S, D) -> (B, Hq, T, D) in q's type,
-    scores scaled by ``1 / sqrt(D)``.
+    scores scaled by ``1 / sqrt(D)``; with ``return_lse`` also each row's
+    log-sum-exp, (B, Hq, T) float32.
 
     On CUDA: bfloat16 (tensor-core kernel) or float32 (CUDA-core
     kernel), contiguous, D in :data:`HEAD_DIMS`.
     """
     global launches, tensor_core_launches, cuda_core_launches
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, window=window)
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     return_lse=return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cpu or cuda, not "
                          f"{q.device}")
@@ -157,11 +176,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention: shape {tuple(q.shape)} / S={s} "
                          "exceeds the launch grid")
     out = torch.empty_like(q)
+    lse = (torch.empty((b, hq, t), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     if out.numel() == 0:
-        return out
+        return (out, lse) if return_lse else out
     from .build import check, library
     err = getattr(library(), entry)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq, hkv,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr() if return_lse else None, b, hq, hkv,
         t, s, d, ctypes.c_float(1.0 / d ** 0.5), int(causal),
         0 if window is None else int(window),
         torch.cuda.current_stream(q.device).cuda_stream)
@@ -171,4 +193,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     else:
         cuda_core_launches += 1
     launches += 1
-    return out
+    return (out, lse) if return_lse else out

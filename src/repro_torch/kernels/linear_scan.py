@@ -22,6 +22,14 @@ kernel equals :func:`linear_scan_plain` bit for bit.
 Dispatch goes by the tensor's device: a CPU tensor runs
 :func:`linear_scan_plain`, a CUDA tensor launches the kernel (or raises).
 ``launches`` counts kernel launches and nothing else.
+
+Training goes through :func:`linear_scan_autograd`, a
+``torch.autograd.Function`` around the same wrapper.  Its backward is
+itself a linear scan, run in reverse: ``g_t = dhs_t + a_{t+1} g_{t+1}``
+seeded with the final state's gradient (``a_T = 1``), then ``dx = g``,
+``da_t = g_t h_{t-1}`` (``h_{-1} = h0``, or 0) and ``dh0 = a_0 g_0``.
+So on the card the backward launches the same kernel on the reversed,
+shifted inputs, in float32; on the CPU it runs the plain version.
 """
 from __future__ import annotations
 
@@ -97,3 +105,50 @@ def linear_scan(x: torch.Tensor, a: torch.Tensor,
     check(err, "linear_scan")
     launches += 1
     return hs, last
+
+
+def linear_scan_bwd(a: torch.Tensor, hs: torch.Tensor,
+                    h0: torch.Tensor | None, dhs: torch.Tensor,
+                    dlast: torch.Tensor, x_dtype: torch.dtype):
+    """(dx, da, dh0) of ``linear_scan`` from the forward's ``a``, states
+    ``hs`` and ``h0`` and the gradients of its two outputs: one reverse
+    scan through :func:`linear_scan` (the kernel on CUDA) in float32."""
+    b, t, d = a.shape
+    af = a.float()
+    a_rev = torch.cat([af[:, 1:], torch.ones((b, 1, d), dtype=torch.float32,
+                                             device=a.device)], dim=1)
+    g_rev, _ = linear_scan(dhs.float().flip(1).contiguous(),
+                           a_rev.flip(1).contiguous(),
+                           dlast.float().contiguous())
+    g = g_rev.flip(1)
+    first = (torch.zeros((b, 1, d), dtype=torch.float32, device=a.device)
+             if h0 is None else h0.float()[:, None])
+    h_prev = torch.cat([first, hs[:, :-1].float()], dim=1)
+    dh0 = None if h0 is None else (af[:, 0] * g[:, 0]).to(h0.dtype)
+    return g.to(x_dtype), (g * h_prev).to(a.dtype), dh0
+
+
+class _LinearScan(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, a, h0):
+        hs, last = linear_scan(x, a, h0)
+        ctx.save_for_backward(a, hs, h0)
+        ctx.x_dtype = x.dtype
+        return hs, last
+
+    @staticmethod
+    def backward(ctx, dhs, dlast):
+        a, hs, h0 = ctx.saved_tensors
+        return linear_scan_bwd(a, hs, h0, dhs, dlast, ctx.x_dtype)
+
+
+def linear_scan_autograd(x: torch.Tensor, a: torch.Tensor,
+                         h0: torch.Tensor | None = None
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`linear_scan` that autograd can differentiate: the
+    :class:`_LinearScan` Function when a gradient is needed, else the
+    wrapper alone (nothing saved)."""
+    if torch.is_grad_enabled() and any(
+            u is not None and u.requires_grad for u in (x, a, h0)):
+        return _LinearScan.apply(x, a, h0)
+    return linear_scan(x, a, h0)

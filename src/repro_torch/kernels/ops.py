@@ -1,18 +1,22 @@
 """The device-dispatching operations the rest of the package calls.
 
 ``row_signature``, ``seg_boundaries``, ``attention`` and ``linear_scan``
-are the kernel wrappers themselves (``sig_hash.py``, ``seg_count.py``,
+are the kernel wrappers (``sig_hash.py``, ``seg_count.py``,
 ``flash_attention.py``, ``linear_scan.py``) under the reference's
 names: each runs where its tensor lies, the hand kernel on a CUDA
 tensor, its plain version on a CPU tensor.  There is no flag and no
-fallback: a CUDA launch that fails raises.
+fallback: a CUDA launch that fails raises.  ``attention`` and
+``linear_scan`` are differentiable: when a gradient is needed they go
+through their ``torch.autograd.Function`` (``chunked_attention``,
+``linear_scan_autograd``), whose forward is the same wrapper; else the
+wrapper alone.
 """
 from __future__ import annotations
 
 import torch
 
-from .flash_attention import flash_attention as attention  # noqa: F401
-from .linear_scan import linear_scan  # noqa: F401  (re-exported)
+from .chunked_attention import chunked_attention as attention  # noqa: F401
+from .linear_scan import linear_scan_autograd as linear_scan  # noqa: F401
 from .ref import SIG_SENTINEL  # noqa: F401  (re-exported)
 from .seg_count import seg_boundaries  # noqa: F401  (re-exported)
 from .sig_hash import sig_hash as row_signature  # noqa: F401  (re-exported)

@@ -16,8 +16,13 @@ llama3-405b, the SSM mamba2-780m, the MoE moonshot-v1-16b-a3b and
 dbrx-132b, the encoder-decoder whisper-medium and the VLM internvl2-2b)
 and defaults to qwen2-0.5b, as the JAX launcher does.  The weights are
 random, drawn from a ``torch.Generator`` seeded with ``--seed``.
-``--reduced`` is the tiny float32 config at head_dim 64, the flash
-kernel's smallest build, so it runs on the card and on the CPU alike.
+``--reduced`` is the tiny float32 config: the JAX launcher's
+``reduced(cfg)`` on the CPU, and the same at head_dim 64 on the card,
+where no flash kernel is built at JAX's head_dim 32
+(:func:`repro_torch.launch.arch_config`, shared with ``launch.train``).
+The JAX launcher's ``--reduced`` cannot be turned off (its default is
+true), so ``repro.launch.serve --arch X`` always serves the reduced
+config where this launcher serves the published one.
 In float32 (``--reduced``) the policies' tokens are asserted identical;
 in bf16 an argmax over near-tied logits may differ, so there the share
 of agreeing tokens is printed instead.  whisper-medium and internvl2-2b
@@ -58,12 +63,13 @@ import time
 import numpy as np
 import torch
 
-from ..configs import ARCHS, get_arch, reduced
+from ..configs import ARCHS
 from ..kernels.ops import resolve_device
 from ..models.lm import LM
 from ..serving import (PREFIX_POLICIES, BGPQueryRequest, Engine,
                        GraphQueryRequest, GraphQueryService, Request)
 from ..train.serve_step import make_decode_step, make_prefill_step
+from . import REDUCED_HELP, arch_config
 
 
 def _graph_backend(backend: str, device):
@@ -601,8 +607,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--arch", default="qwen2-0.5b",
                     choices=sorted(ARCHS))
     ap.add_argument("--reduced", action="store_true",
-                    help="the tiny float32 same-family config (head_dim "
-                         "64, so it also runs on the card)")
+                    help=REDUCED_HELP + " (unlike the JAX launcher, "
+                         "off by default: the published config)")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=96)
     ap.add_argument("--shared-frac", type=float, default=0.75,
@@ -665,8 +671,7 @@ def main(argv=None) -> dict:
                                    device=args.device)
 
     dev = resolve_device(args.device)
-    cfg = reduced(get_arch(args.arch), head_dim=64) if args.reduced \
-        else get_arch(args.arch)
+    cfg = arch_config(args.arch, reduced_cfg=args.reduced, device=dev)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     model = LM(cfg, device=dev, generator=gen)
     print(f"lm {cfg.name}{' (reduced)' if args.reduced else ''}: "

@@ -7,7 +7,9 @@ where ``cfg.n_experts`` is set, an MoE; ``rglru`` -> RG-LRU + MLP;
 ``ssd`` -> the mamba2 mixer alone), learned positions where
 ``rope_theta == 0``, the whisper encoder (non-causal attention + MLP
 over the frontend's frame embeddings), and the vision stub's projection
-of patch embeddings placed before the text.  Two entry points --
+of patch embeddings placed before the text.  Three entry points --
+:meth:`LM.forward` (training: logits of every position and the MoE's
+``aux`` loss, each layer recomputed in backward when ``cfg.remat``),
 :meth:`LM.prefill` (builds the decode cache; ``frontend_embeds`` for
 the stubs) and :meth:`LM.decode_step` (one token) -- and caches as a
 per-layer list of dicts whose tensors all have batch on axis 0; an
@@ -17,8 +19,8 @@ package scans a homogeneous stack over a layer-stacked param tree and
 unrolls a heterogeneous one; here both are an ``nn.ModuleList`` of
 layers, named ``layers.<i>.<block>.<name>`` (``encoder.layers.<i>...``
 for the encoder; ``convert.lm_params_from_jax`` unstacks the JAX tree).
-The MoE's ``aux`` loss is dropped by both entry points, as in the JAX
-package.
+The MoE's ``aux`` loss is summed over the layers by ``forward`` and
+dropped by the serve entry points, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels.ops import resolve_device
 from . import blocks
@@ -98,8 +101,10 @@ class Layer(nn.Module):
 
     def forward(self, ctx: Ctx, x, positions, *, cache=None,
                 return_cache=False, causal=True, enc_kv=None):
-        """Returns (x, new_cache).  ``enc_kv``: this layer's
-        cross-attention K/V (prefill); decode reads it from ``cache``."""
+        """Returns (x, new_cache, aux): ``aux`` the MoE's load-balance
+        loss (float32 0 without one).  ``enc_kv``: the encoder's output
+        (B, S, D), which the cross-attention projects to its K/V
+        (prefill, training); decode reads them from ``cache``."""
         mixer = getattr(self, self.mixer)
         h = rms_norm(x, mixer.ln)
         kw = dict(cache=cache[self.mixer] if cache else None,
@@ -114,17 +119,20 @@ class Layer(nn.Module):
         if "xattn" in self.blks:
             if cache:
                 enc_kv = cache["xattn"]
+            elif enc_kv is not None:          # the encoder's output
+                enc_kv = self.xattn.encoder_kv(enc_kv)
             out, _ = self.xattn(ctx, rms_norm(x, self.xattn.ln), positions,
                                 kv_override=enc_kv)
             x = x + out
             if cache or return_cache:
                 new["xattn"] = enc_kv
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if "moe" in self.blks:
-            out, _ = self.moe(ctx, rms_norm(x, self.moe.ln))   # aux dropped
+            out, aux = self.moe(ctx, rms_norm(x, self.moe.ln))
             x = x + out
         elif "mlp" in self.blks:
             x = x + self.mlp(rms_norm(x, self.mlp.ln))
-        return x, new
+        return x, new, aux
 
 
 class Encoder(SpecModule):
@@ -147,16 +155,28 @@ class Encoder(SpecModule):
                 "final_ln": TSpec((cfg.d_model,), "float32", init="zeros")}
 
     def forward(self, ctx: Ctx, frames: torch.Tensor,
-                dtype: torch.dtype) -> torch.Tensor:
-        """frames: (B, S, frontend_dim) -> (B, S, D)."""
+                dtype: torch.dtype, remat: bool = False) -> torch.Tensor:
+        """frames: (B, S, frontend_dim) -> (B, S, D).  ``remat``:
+        recompute each layer in backward."""
         x = frames.to(dtype) @ self.in_proj.to(dtype)
         x = x + self.pos_embed[None, :x.shape[1]].to(dtype)
         b, s = x.shape[:2]
         positions = torch.arange(s, dtype=torch.int32,
                                  device=x.device).expand(b, s)
         for layer in self.layers:
-            x, _ = layer(ctx, x, positions, causal=False)
+            x = _run(layer, remat, ctx, x, positions, causal=False)[0]
         return rms_norm(x, self.final_ln)
+
+
+def _run(layer: Layer, remat: bool, ctx: Ctx, x, positions, **kw):
+    """``layer(ctx, x, positions, **kw)``, through
+    ``torch.utils.checkpoint`` (non-reentrant: its activations are
+    recomputed in backward, the JAX ``nothing_saveable`` policy) when
+    ``remat`` is set and a gradient is being recorded."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(layer, ctx, x, positions, use_reentrant=False,
+                          **kw)
+    return layer(ctx, x, positions, **kw)
 
 
 class LM(SpecModule):
@@ -224,6 +244,14 @@ class LM(SpecModule):
                 add(f"encoder.layers.{i}", enc_layer)
         return out
 
+    @classmethod
+    def input_shapes(cls, cfg) -> dict[str, tuple[tuple[int, ...],
+                                                  torch.dtype]]:
+        """(shape, dtype) of every parameter by name, nothing allocated
+        (the JAX ``input_shapes``)."""
+        return {name: (s.shape, torch_dtype(s.dtype))
+                for name, s in cls.param_specs(cfg).items()}
+
     def cache_specs(self, batch: int, cache_len: int) -> list[dict]:
         """The decode cache :meth:`prefill` returns, layer by layer."""
         return [_layer_cache_specs(self.cfg, k, batch, cache_len)
@@ -246,7 +274,49 @@ class LM(SpecModule):
             return x @ self.embed.to(self.dtype).T
         return x @ self.lm_head.to(self.dtype)
 
+    def _frontend(self, ctx: Ctx, x, frontend_embeds, remat: bool = False):
+        """(x, encoder output or None): the whisper encoder's output, or
+        the VLM's projected patches placed before the text."""
+        cfg = self.cfg
+        if (cfg.encoder_layers or cfg.frontend != "none") and \
+                frontend_embeds is None:
+            raise ValueError(f"{cfg.name} needs frontend_embeds "
+                             f"({cfg.frontend})")
+        if cfg.encoder_layers:
+            return x, self.encoder(ctx, frontend_embeds, self.dtype, remat)
+        if cfg.frontend == "vision_stub":
+            img = frontend_embeds.to(self.dtype) @ \
+                self.frontend_proj.to(self.dtype)
+            x = torch.cat([img, x], dim=1)
+        return x, None
+
     # -- entry points --------------------------------------------------------
+    def forward(self, tokens: torch.Tensor, *,
+                frontend_embeds: torch.Tensor | None = None,
+                positions: torch.Tensor | None = None):
+        """Training forward.  tokens: (B, T) int; ``positions`` (B, T)
+        default ``arange(T)`` (the VLM's always count the patches first).
+        Returns ((B, T, V) logits of every text position, the float32
+        MoE ``aux`` loss summed over the layers)."""
+        cfg = self.cfg
+        b, t = tokens.shape
+        if positions is None:
+            positions = torch.arange(t, dtype=torch.int32,
+                                     device=self.device).expand(b, t)
+        x = self._embed(tokens, positions)
+        x, enc_out = self._frontend(self.ctx, x, frontend_embeds, cfg.remat)
+        if cfg.frontend == "vision_stub":
+            positions = torch.arange(x.shape[1], dtype=torch.int32,
+                                     device=self.device).expand(b, -1)
+        aux = torch.zeros((), dtype=torch.float32, device=self.device)
+        for layer in self.layers:
+            x, _, a = _run(layer, cfg.remat, self.ctx, x, positions,
+                           enc_kv=enc_out)
+            aux = aux + a
+        if cfg.frontend == "vision_stub":
+            x = x[:, -t:]                               # text positions only
+        return self._head(x), aux
+
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, *, cache_len: int,
                 frontend_embeds: torch.Tensor | None = None):
@@ -255,31 +325,19 @@ class LM(SpecModule):
         patch embeddings (the VLM: P image tokens placed before the text,
         so ``cache_len`` must hold P + T).  Returns ((B, 1, V) logits of
         the last position, the per-layer cache list)."""
-        cfg = self.cfg
         b, t = tokens.shape
-        if (cfg.encoder_layers or cfg.frontend != "none") and \
-                frontend_embeds is None:
-            raise ValueError(f"{cfg.name} needs frontend_embeds "
-                             f"({cfg.frontend})")
         positions = torch.arange(t, dtype=torch.int32,
                                  device=self.device).expand(b, t)
         ctx = dataclasses.replace(self.ctx, cache_len=cache_len)
         x = self._embed(tokens, positions)
-        enc_out = None
-        if cfg.encoder_layers:
-            enc_out = self.encoder(ctx, frontend_embeds, self.dtype)
-        elif cfg.frontend == "vision_stub":
-            img = frontend_embeds.to(self.dtype) @ \
-                self.frontend_proj.to(self.dtype)
-            x = torch.cat([img, x], dim=1)
+        x, enc_out = self._frontend(ctx, x, frontend_embeds)
+        if self.cfg.frontend == "vision_stub":
             positions = torch.arange(x.shape[1], dtype=torch.int32,
                                      device=self.device).expand(b, -1)
         caches = []
         for layer in self.layers:
-            enc_kv = (layer.xattn.encoder_kv(enc_out)
-                      if enc_out is not None and "xattn" in layer.blks
-                      else None)
-            x, c = layer(ctx, x, positions, return_cache=True, enc_kv=enc_kv)
+            x, c, _ = layer(ctx, x, positions, return_cache=True,
+                            enc_kv=enc_out)
             caches.append(c)
         return self._head(x[:, -1:]), caches
 
@@ -291,6 +349,6 @@ class LM(SpecModule):
         x = self._embed(tokens, positions)
         new = []
         for layer, c in zip(self.layers, cache):
-            x, nc = layer(self.ctx, x, positions, cache=c)
+            x, nc, _ = layer(self.ctx, x, positions, cache=c)
             new.append(nc)
         return self._head(x), new

@@ -33,6 +33,14 @@ CACHE_LEN = 64
 STUBS = ("whisper-medium", "internvl2-2b")
 
 
+
+@pytest.fixture(autouse=True)
+def _no_grad():
+    """The blocks run here as the serve path runs them, recording no
+    gradient (the port's parameters are trainable)."""
+    with torch.no_grad():
+        yield
+
 @pytest.fixture(scope="module", params=STUBS)
 def M(request):
     pytest.importorskip("jax")

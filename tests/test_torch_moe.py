@@ -81,6 +81,14 @@ def _jax_moe(cfg, p, x, **ctx):
     return np.asarray(o), float(a)
 
 
+
+@pytest.fixture(autouse=True)
+def _no_grad():
+    """The blocks run here as the serve path runs them, recording no
+    gradient (the port's parameters are trainable)."""
+    with torch.no_grad():
+        yield
+
 @pytest.fixture(scope="module", autouse=True)
 def _jax():
     pytest.importorskip("jax")

@@ -53,7 +53,7 @@ def S():
     ctx = Ctx(cfg=cfg, attn_impl="pallas_interpret",
               scan_impl="pallas_interpret")
     return types.SimpleNamespace(
-        pf=jpf, model=model,
+        pf=jpf, model=model, jax=jax, jm=jm, params=params, ctx=ctx,
         jengine=functools.partial(JEngine, jm, params, ctx=ctx),
         JRequest=JRequest)
 
@@ -182,6 +182,124 @@ def test_policies_and_stats():
     assert eng.logits is None
     with pytest.raises(KeyError):
         Engine(model, policy="nope", device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# the KV pool, molecule_broadcast and temperature sampling
+# ---------------------------------------------------------------------------
+
+def test_kv_pool():
+    """The JAX ``tests/test_serving.py::test_kv_pool`` on the port's pool:
+    allocation, occupancy, a freed slot reused at once, exhaustion."""
+    from repro_torch.serving.kv_cache import KVPool, SlotState
+    pool = KVPool(3)
+    a = pool.alloc(10)
+    pool.alloc(11)
+    assert pool.occupancy() == pytest.approx(2 / 3)
+    pool.free(a)
+    assert pool.slots[a] == SlotState()
+    assert pool.alloc(12) == a         # slot reuse (continuous batching)
+    pool.alloc(13)
+    with pytest.raises(RuntimeError, match="exhausted"):
+        pool.alloc(14)
+    assert sorted(pool.active()) == [0, 1, 2]
+    assert pool.slots[a] == SlotState(12, 0)
+
+
+def test_molecule_broadcast_equals_jax_after_unstacking():
+    """The JAX ``molecule_broadcast`` over layer-stacked (L, B, ...) caches
+    against the port's over per-layer (B, ...) ones: a prefix of 5 of 9
+    KV positions, every other tensor whole."""
+    jax = pytest.importorskip("jax")
+    from repro.serving.kv_cache import molecule_broadcast as jmb
+    from repro_torch.convert import unstack_layers
+    from repro_torch.serving.kv_cache import molecule_broadcast
+    rng = np.random.default_rng(3)
+    n_l, b, m = 2, 4, 2
+
+    def cache(batch, s):
+        r = lambda *shape: rng.standard_normal(  # noqa: E731
+            (n_l, batch) + shape).astype(np.float32)
+        return {"attn": {"k": r(2, s, 8), "v": r(2, s, 8),
+                         "pos": rng.integers(0, 50, (n_l, batch, s)).astype(
+                             np.int32)},
+                "rglru": {"state": r(6), "conv": r(3, 6)},
+                "ssd": {"state": r(3, 4, 5)}}
+    full, mol = cache(b, 9), cache(m, 5)
+    inst = np.array([1, 0, 1, 1])
+    want = jmb(jax.tree.map(jax.numpy.asarray, full),
+               jax.tree.map(jax.numpy.asarray, mol), inst)
+    tt = lambda tree: [jax.tree.map(torch.from_numpy, layer)  # noqa: E731
+                       for layer in unstack_layers(tree, n_l)]
+    tfull = tt(full)
+    got = molecule_broadcast(tfull, tt(mol), inst)
+    for i, (g, w) in enumerate(zip(got, unstack_layers(
+            jax.tree.map(np.asarray, want), n_l))):
+        for blk in w:
+            for name in w[blk]:
+                np.testing.assert_array_equal(g[blk][name].numpy(),
+                                              w[blk][name], f"{i}.{blk}."
+                                              f"{name}")
+    np.testing.assert_array_equal(tfull[0]["attn"]["k"].numpy(),
+                                  full["attn"]["k"][0])   # input untouched
+
+
+def test_temperature_sampling_equals_jax_categorical(S):
+    """A decode step at temperature T: the JAX step samples with
+    ``jax.random.categorical(key, logits / T)``, which is
+    ``argmax(logits / T + gumbel(key))``; the port, handed the same
+    Gumbel noise, picks the same tokens.  At T -> 0 the port's own
+    noise (from a ``torch.Generator``) leaves the greedy token."""
+    from repro.train.serve_step import make_decode_step as jdecode
+    from repro.train.serve_step import make_prefill_step as jprefill
+    from repro_torch.train.serve_step import (gumbel_noise, make_decode_step,
+                                              make_prefill_step)
+    jax = S.jax
+    toks = np.random.default_rng(5).integers(1, 512, (4, 12)).astype(
+        np.int32)
+    pos = np.full((4, 1), 12, np.int32)
+    jnext, jcache = jax.jit(jprefill(S.jm, ctx=S.ctx, cache_len=16))(
+        S.params, jax.numpy.asarray(toks))
+    vocab = S.model.cfg.vocab_size
+    for t, seed in ((0.7, 1), (1.5, 2), (1.5, 3)):
+        key = jax.random.PRNGKey(seed)
+        want, _ = jdecode(S.jm, ctx=S.ctx, temperature=t)(
+            S.params, jnext[:, None], jcache, jax.numpy.asarray(pos),
+            rng=key)
+        noise = np.array(jax.random.gumbel(key, (4, vocab)))
+        nxt, cache, _ = make_prefill_step(S.model, cache_len=16)(
+            torch.from_numpy(toks))
+        np.testing.assert_array_equal(nxt.numpy(), np.asarray(jnext))
+        got, _, _ = make_decode_step(S.model, temperature=t)(
+            nxt[:, None], cache, torch.from_numpy(pos),
+            noise=torch.from_numpy(noise))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    nxt, cache, _ = make_prefill_step(S.model, cache_len=16)(
+        torch.from_numpy(toks))
+    greedy, _, _ = make_decode_step(S.model)(nxt[:, None], cache,
+                                             torch.from_numpy(pos))
+    nxt, cache, _ = make_prefill_step(S.model, cache_len=16)(
+        torch.from_numpy(toks))
+    cold, _, _ = make_decode_step(S.model, temperature=1e-6)(
+        nxt[:, None], cache, torch.from_numpy(pos),
+        generator=torch.Generator().manual_seed(0))
+    assert torch.equal(cold, greedy)
+    g = gumbel_noise((200_000,), torch.Generator().manual_seed(1))
+    assert abs(float(g.mean()) - 0.5772) < 0.01       # Euler's constant
+    with pytest.raises(ValueError, match="generator or noise"):
+        make_decode_step(S.model, temperature=1.0)(nxt[:, None], cache,
+                                                   torch.from_numpy(pos))
+
+
+def test_decode_input_specs_are_the_cache_specs():
+    from repro_torch.train.serve_step import decode_input_specs
+    cfg = t_reduced(t_get_arch("recurrentgemma-2b"))
+    model = LM(cfg, device="cpu")
+    specs = decode_input_specs(model, 3, 40)
+    assert specs["tokens"].shape == specs["positions"].shape == (3, 1)
+    assert specs["tokens"].dtype == "int32"
+    assert specs["cache"] == model.cache_specs(3, 40)
+    assert specs["cache"][2]["attn"]["k"].shape == (3, 1, 32, 32)
 
 
 # ---------------------------------------------------------------------------

@@ -46,6 +46,14 @@ TOL_RAW = 1e-4          # the recurrence alone, outputs up to ~47
 NAME = "mamba2-780m"
 
 
+
+@pytest.fixture(autouse=True)
+def _no_grad():
+    """The blocks run here as the serve path runs them, recording no
+    gradient (the port's parameters are trainable)."""
+    with torch.no_grad():
+        yield
+
 @pytest.fixture(scope="module")
 def M():
     pytest.importorskip("jax")

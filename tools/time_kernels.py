@@ -20,10 +20,14 @@ The shapes:
   rows are valid (the rest padding, as ``core/sweep.py`` pads a class)
   and 8 column masks (the drop-one stack), made from seed 0;
 - float32 ``flash_attention`` at recurrentgemma-2b's flat prefill:
-  q (8, 10, 2304, 256), k = v (8, 1, 2304, 256), causal, window 2048.
+  q (8, 10, 2304, 256), k = v (8, 1, 2304, 256), causal, window 2048;
+- bf16 ``flash_attention`` (the tensor-core kernel, as the serve path
+  calls it) at the same shape and at qwen2-0.5b's flat prefill,
+  q (8, 14, 2304, 64), k = v (8, 2, 2304, 64), causal.
 
 Each is checked against its plain version first (``sig_hash`` bit for
-bit, flash within 1e-5), then timed two ways: CUDA events around
+bit, float32 flash within 1e-5, bf16 flash within each row's
+``bf16_row_limit``), then timed two ways: CUDA events around
 back-to-back calls of the wrapper (five repeats after warm-up calls),
 and the kernel's own device time per launch from ``torch.profiler``.
 Prints the card's name and power limit, then one JSON line per kernel.
@@ -42,6 +46,9 @@ import torch
 REPEATS = 5
 SIG_SHAPE, SIG_VALID, SIG_CANDS = (1 << 21, 8), 1_110_000, 8
 FLASH_Q, FLASH_KV, FLASH_WINDOW = (8, 10, 2304, 256), (8, 1, 2304, 256), 2048
+# bf16 serve-path shapes: (q, kv, window)
+BF16_CASES = (((8, 10, 2304, 256), (8, 1, 2304, 256), 2048),
+              ((8, 14, 2304, 64), (8, 2, 2304, 64), None))
 F32_TOL = 1e-5
 
 
@@ -135,6 +142,23 @@ def time_flash(mod, root, rng, dev):
     print(json.dumps({"root": str(root), "kernel": "flash_attention float32",
                       "shape": [*FLASH_Q, FLASH_WINDOW], "max_abs_err": err,
                       **rec}), flush=True)
+    for qs, kvs, window in BF16_CASES:
+        q, kk, v = (torch.from_numpy(rng.standard_normal(s).astype(
+            np.float32)).to(dev, torch.bfloat16) for s in (qs, kvs, kvs))
+        fkw = {"causal": True, "window": window}
+        want = mod.flash_attention_plain(q, kk, v, **fkw)
+        limit = mod.bf16_row_limit(q, kk, v, want, **fkw)
+        delta = (mod.flash_attention(q, kk, v, **fkw).float() -
+                 want.float()).abs()
+        assert bool((delta <= limit).all()), float(delta.max())
+        del want, limit
+        rec = timed(lambda: mod.flash_attention(q, kk, v, **fkw),
+                    "flash_sm90", 20, 3)
+        print(json.dumps({"root": str(root),
+                          "kernel": "flash_attention bf16",
+                          "shape": [*qs, kvs[1], window],
+                          "max_abs_err": float(delta.max()), **rec}),
+              flush=True)
 
 
 if __name__ == "__main__":
