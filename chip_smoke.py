@@ -223,9 +223,25 @@ Phases, each an assertion (any failure exits non-zero):
    ``bf16_grad_row_limits``, which a backward that leaves one key chunk
    out must break), and the scan Function's dx/da against autograd
    through ``linear_scan_plain``, bit for bit; then the training shape's
-   flash with and without its LSE store and its backward, timed.
+   flash timed beside its plain version, SDPA and its bound, with and
+   without its LSE store, and its backward;
+10. the H100 dry run and the sharded flash-decode: (a) ``launch.dryrun
+   --all --mesh both`` in the process, 80 cells (10 ``ARCHS`` x 4
+   ``SHAPES`` x the 256- and 512-GPU meshes) counted on ``meta`` tensors
+   (no card), each ``ok`` or an ``applicable`` skip, none an error; its
+   seconds and the single-mesh ``report.markdown`` table printed; (b)
+   the dry run's cell at 9b's exact step (qwen2-0.5b, mesh 1x1, batch 8
+   x 4096): its compute and memory terms at most 9b's measured median
+   step (lower bounds), its reckoned peak within 25% of 9b's measured
+   peak, the counted flops beside the analytic 6 N tokens + remat +
+   attention; (c) ``decode_attention_sharded`` at full width: qwen3-32b
+   at published width and 7f's depth, 8 prompts of 2048 tokens
+   prefilled by the bf16 flash kernel into a 32,768-long cache, then 16
+   decode steps with the cache's sequence split over a (1, 4) mesh of
+   the card (``decode_kv_specs``), each step's logits within 4 bf16
+   steps of the unsharded decode's on the same tokens.
 
-Phases 6-9 run in a second process on the same card (this script with
+Phases 6-10 run in a second process on the same card (this script with
 ``--lm-phases``), started after phase 2 and run beside phases 3-5,
 which are host-bound; its output follows phase 5's, and its launch
 counts, errors and times are merged into the record.
@@ -242,8 +258,8 @@ idle share and the kernels that took most of its time.
 
 The last two lines are the ``{"kernels": [...]}`` record -- five routes:
 ``sig_hash``, ``seg_count`` (their launches summed over phases 3-4h),
-``flash_attention`` (bf16, tensor cores; launches of phases 7, 7c-7f
-and 9b-9c), ``flash_attention_f32`` (float32, CUDA cores; launches of
+``flash_attention`` (bf16, tensor cores; launches of phases 7, 7c-7f,
+9b-9c and 10c), ``flash_attention_f32`` (float32, CUDA cores; launches of
 the 7b runs, 7e's float32 checks and 9d, its time at the largest
 prefill shape) and ``linear_scan`` (launches of phases 7, 7c, 7f and
 9c-9d, the backward's reverse scans among them) -- and the ``{"ok":
@@ -268,15 +284,19 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, and the
-# lane rate of one 64-lane/clk/SM integer pipe, half the float32 lanes of
-# the 67 TFLOP/s FMA figure (2 flops per FMA).  Integer work goes to two
-# such pipes at once: IMAD to the FMA pipe, shifts and logic
-# (SHF/LOP3/IADD3) to the INT32 ALU pipe; the busier pipe sets the floor.
-HBM_BYTES_PER_S = 3.35e12
-INT32_PIPE_OPS_PER_S = 67e12 / 2 / 2
-BF16_TENSOR_FLOPS = 989e12
-F32_FLOPS = 67e12
+if (ROOT / "src" / "repro_torch").is_dir():  # else main() refuses to run
+    sys.path.insert(0, str(ROOT / "src"))
+    # the H100 SXM's published peaks, one source (launch/mesh.py): HBM3
+    # bandwidth, bf16 tensor cores and float32 CUDA cores, and the lane
+    # rate of one 64-lane/clk/SM integer pipe, half the float32 lanes of
+    # the 67 TFLOP/s FMA figure (2 flops per FMA).  Integer work goes to
+    # two such pipes at once: IMAD to the FMA pipe, shifts and logic
+    # (SHF/LOP3/IADD3) to the INT32 ALU pipe; the busier pipe sets the
+    # floor.
+    from repro_torch.launch.mesh import HBM_BW as HBM_BYTES_PER_S
+    from repro_torch.launch.mesh import PEAK_FLOPS_BF16 as BF16_TENSOR_FLOPS
+    from repro_torch.launch.mesh import PEAK_FLOPS_F32 as F32_FLOPS
+    INT32_PIPE_OPS_PER_S = F32_FLOPS / 2 / 2
 
 N_QUERIES = 64
 SEED = 0
@@ -344,7 +364,7 @@ LM_NEW = 16
 LM_CHUNK = 256
 
 
-# launches of each kernel on the main paths (phases 3-4h; 6-9 in the
+# launches of each kernel on the main paths (phases 3-4h; 6-10 in the
 # second process, merged in)
 TOTALS = {"sig_hash": 0, "seg_count": 0}
 
@@ -3065,17 +3085,18 @@ def flash_times(q, k, v, kw: dict) -> dict:
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import (flash_attention,
+    from repro_torch.kernels.flash_attention import (attended_pairs,
+                                                     flash_attention,
                                                      flash_attention_plain,
-                                                     kernel_for)
+                                                     kernel_for, work)
 
     b, hq, t, d = q.shape
     hkv, s = k.shape[1], k.shape[2]
-    mask = ref.attention_mask(t, s, kw.get("causal", True), kw.get("window"),
-                              q.device)
-    pairs = int(mask.sum())                       # attended (q, k) per head
-    flops = 4 * d * hq * b * pairs
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    causal, window = kw.get("causal", True), kw.get("window")
+    mask = ref.attention_mask(t, s, causal, window, q.device)
+    pairs = attended_pairs(t, s, causal, window)  # attended (q, k) per head
+    flops, nbytes = work(q.shape, k.shape, q.dtype, causal=causal,
+                         window=window)
     peak = BF16_TENSOR_FLOPS if q.dtype == torch.bfloat16 else F32_FLOPS
     kx = k.repeat_interleave(hq // hkv, dim=1)
     vx = v.repeat_interleave(hq // hkv, dim=1)
@@ -3093,11 +3114,10 @@ def flash_times(q, k, v, kw: dict) -> dict:
 
 
 def scan_times(x, a, h0) -> dict:
-    from repro_torch.kernels.linear_scan import linear_scan, linear_scan_plain
+    from repro_torch.kernels.linear_scan import (linear_scan,
+                                                 linear_scan_plain, work)
 
-    sb, _, sd = x.shape
-    scan_bytes = 3 * x.numel() * x.element_size() + 4 * sb * sd * (
-        2 if h0 is not None else 1)
+    scan_flops, scan_bytes = work(x.shape, x.dtype, h0 is not None)
     return with_bound(dict(
         name="linear_scan",
         shape=f"x, a {tuple(x.shape)} {x.dtype}, h0 {h0 is not None}",
@@ -3105,7 +3125,7 @@ def scan_times(x, a, h0) -> dict:
         plain_ms=time_ms(lambda: linear_scan_plain(x, a, h0), 3, 1),
         library_ms=None,
         bound=(scan_bytes / HBM_BYTES_PER_S * 1e3,
-               2 * x.numel() / F32_FLOPS * 1e3)))
+               scan_flops / F32_FLOPS * 1e3)))
 
 
 def lm_path_parity_and_times(recs: dict) -> dict:
@@ -3230,9 +3250,10 @@ def flash_calls(cfg) -> int:
     return n * (2 if cfg.encoder_layers else 1) + cfg.encoder_layers
 
 
-def train_full(dev) -> tuple[dict[str, int], object]:
+def train_full(dev) -> tuple[dict[str, int], object, dict]:
     """Phase 9b: qwen2-0.5b at published width and depth.  Returns (the
-    launch counts of the run, its recorder)."""
+    launch counts of the run, its recorder, the measured step: median
+    seconds of the timed steps and peak device bytes, for phase 10b)."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.train import make_optimizer, make_train_step
@@ -3293,7 +3314,9 @@ def train_full(dev) -> tuple[dict[str, int], object]:
     assert losses[-1] < losses[0], f"the loss did not fall: {losses}"
     del model, opt, step, state, batch
     torch.cuda.empty_cache()
-    return launched, rec
+    measured = {"median_s": sorted(timed)[len(timed) // 2],
+                "peak_bytes": peak}
+    return launched, rec, measured
 
 
 def train_sweep(dev) -> tuple[dict[str, int], dict]:
@@ -3541,8 +3564,9 @@ def train_parity(recs: dict) -> None:
     """Phase 9a over the recorders of 9b-9c: each flash shape's forward
     (``flash_case``, with its lost-tile control for bf16), LSE and
     gradients (with the lost-chunk control for bf16), each scan shape's
-    gradients; then the times of the training shape's forward with and
-    without the LSE store and of its backward."""
+    gradients; then the training shape's forward timed beside its plain
+    version, SDPA and its bound (``flash_times``), with and without the
+    LSE store, and its backward."""
     import torch
     from repro_torch.kernels import chunked_attention as ca
     from repro_torch.kernels.flash_attention import flash_attention
@@ -3561,6 +3585,8 @@ def train_parity(recs: dict) -> None:
     q, k, v, kw = max((r for rec in recs.values()
                        for r in rec.flash.values()),
                       key=lambda r: r[0].numel())
+    # the training shape's forward: kernel, plain, SDPA and the bound
+    flash_times(q, k, v, kw)
     dout = torch.ones_like(q)
     out, lse = flash_attention(q, k, v, return_lse=True, **kw)
     log(f"train attention at q {tuple(q.shape)} {q.dtype} {kw}: flash "
@@ -3572,11 +3598,186 @@ def train_parity(recs: dict) -> None:
         " ms")
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the H100 dry run and the sharded flash-decode
+# ---------------------------------------------------------------------------
+
+# 10a: worker processes for the 80 cells (host work: ~350 s in one
+# process on the chip machine's host, beside the compaction side)
+DRYRUN_JOBS = 4
+# 10b: the dry run's peak against 9b's measured one
+DRYRUN_PEAK_TOL = 0.25
+# 10c: qwen3-32b at published width, 7f's depth; decode_32k's cache length
+# at batch 8; a 2048-token prompt, 16 decode steps with the cache's
+# sequence over the "model" axis of a (1, 4) mesh of the card
+DECODE_ARCH = "qwen3-32b"
+DECODE_BATCH = 8
+DECODE_PROMPT = 2048
+DECODE_STEPS = 16
+DECODE_MESH = (1, 4)
+
+
+def dryrun_sweep() -> None:
+    """Phase 10a: ``launch.dryrun --all --mesh both`` from this process
+    (DRYRUN_JOBS spawned workers): 80 cells on ``meta`` tensors, each
+    ``ok`` or an ``applicable`` skip
+    (16: long_500k on the full-attention stacks), none an ``error``; the
+    single-mesh ``report.markdown`` table printed."""
+    from repro_torch.launch import dryrun, report
+
+    out = ROOT / "build" / "chip_smoke_dryrun"
+    shutil.rmtree(out, ignore_errors=True)
+    t0 = time.perf_counter()
+    rc = dryrun.main(["--all", "--mesh", "both", "--out", str(out),
+                      "--jobs", str(DRYRUN_JOBS)])
+    secs = time.perf_counter() - t0
+    rows = report.load(str(out))
+    status = [r["status"] for r in rows]
+    log(f"dry run: {len(rows)} cells in {secs:.1f} s")
+    log(report.summary(rows))
+    log("dry run, single mesh (256 H100s; a reckoning from shapes and the "
+        "published peaks, not a measurement):")
+    log(report.markdown(rows, "single"))
+    assert rc == 0 and len(rows) == 80, (rc, len(rows))
+    assert status.count("skip") == 16 and status.count("ok") == 64, status
+    shutil.rmtree(out, ignore_errors=True)
+
+
+def dryrun_train_cell(measured: dict) -> None:
+    """Phase 10b: the dry run's cell at phase 9b's exact step (qwen2-0.5b,
+    24 layers, bf16, remat, AdamW, 8 x 4096, one device).  Its compute
+    and memory terms are lower bounds, so each must be at most 9b's
+    median step; its reckoned peak within DRYRUN_PEAK_TOL of 9b's
+    measured one; the counted flops are printed beside the analytic
+    6 N tokens, the remat recompute of the layers and attention."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import work
+    from repro_torch.launch import dryrun
+
+    res = dryrun.run_cell(TRAIN_ARCH, "train_4k", "1x1", batch=TRAIN_BATCH)
+    assert res["status"] == "ok", res.get("traceback")
+    roof, counts = res["roofline"], res["counts"]
+    cfg = get_arch(TRAIN_ARCH)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    hd = cfg.resolved_head_dim
+    attn, _ = work((TRAIN_BATCH, cfg.n_heads, TRAIN_SEQ, hd),
+                   (TRAIN_BATCH, cfg.n_kv_heads, TRAIN_SEQ, hd),
+                   torch.bfloat16)
+    layer_params = cfg.n_params - cfg.vocab_size * cfg.d_model
+    analytic = {"6 N tokens": 6 * cfg.n_params * tokens,
+                "remat 2 N_layers tokens": 2 * layer_params * tokens,
+                "attention forward + remat + backward at 2.5x":
+                    cfg.n_layers * attn * 4.5}
+    total = sum(analytic.values())
+    median, peak = measured["median_s"], measured["peak_bytes"]
+    got_peak = roof["memory_analysis"]["peak_bytes"]
+    by_type = ", ".join(f"{k} {v:.4g}"
+                        for k, v in counts["flops_by_dtype"].items())
+    log(f"dry run of 9b's step ({TRAIN_ARCH}, {cfg.n_layers} layers, "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ}, mesh 1x1, counted in "
+        f"{res['count_s']:.1f} s): compute {roof['compute_s']:.4f} s, "
+        f"memory {roof['memory_s']:.4f} s, against the measured median "
+        f"step {median:.4f} s")
+    log(f"  flops counted {counts['flops']:.4g} ({by_type}) against "
+        f"{total:.4g} analytic ("
+        + ", ".join(f"{k} {v:.4g}" for k, v in analytic.items())
+        + f"); bytes {counts['bytes']:.4g}; peak {got_peak / 2**30:.2f} "
+        f"GiB reckoned against {peak / 2**30:.2f} GiB measured "
+        f"({got_peak / peak - 1:+.1%})")
+    assert roof["compute_s"] <= median and roof["memory_s"] <= median, \
+        (roof["compute_s"], roof["memory_s"], median)
+    assert abs(got_peak / peak - 1) <= DRYRUN_PEAK_TOL, (got_peak, peak)
+
+
+def sharded_decode(dev) -> dict[str, int]:
+    """Phase 10c: ``decode_attention_sharded`` at full width.  qwen3-32b
+    at its published width, 7f's depth (its 8 kv heads would take a
+    model axis that they divide, so ``decode_kv_specs`` is set
+    explicitly): a DECODE_PROMPT-token prompt prefilled through the bf16
+    flash kernel into a decode_32k-long cache at batch DECODE_BATCH, then
+    DECODE_STEPS greedy decode steps with the cache's sequence split over
+    the "model" axis of a DECODE_MESH mesh whose entries are all the
+    card, each step's logits within LM_LOGIT_STEPS bf16 steps (at the
+    largest logit) of the unsharded decode's on the same tokens.  Returns
+    the launch counts of the run."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import SHAPES, get_arch
+    from repro_torch.dist.mesh import make_mesh
+    from repro_torch.dist.sharding import P
+
+    cfg = dataclasses.replace(get_arch(DECODE_ARCH), n_layers=SWEEP_LAYERS)
+    cache_len = SHAPES["decode_32k"].seq_len
+    model = build_lm(cfg, dev)
+    mesh = make_mesh(DECODE_MESH, ("data", "model"), dev)
+    specs = (P(None, None, None, None), P(None, None, "model", None),
+             P(None, "model"))
+    ctxs = {"plain": model.ctx,
+            "sharded": dataclasses.replace(model.ctx, mesh=mesh,
+                                           decode_kv_specs=specs)}
+    rng = np.random.default_rng(SEED)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (DECODE_BATCH, DECODE_PROMPT))).to(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(tokens, cache_len=cache_len)
+    torch.cuda.synchronize()
+    launched = read_launches(("flash_attention", "linear_scan"))
+    assert flash_kernel_launches() == {"tensor_core": cfg.n_layers,
+                                       "cuda_core": 0}, \
+        flash_kernel_launches()
+    log(f"sharded decode, {cfg.name} ({cfg.n_layers} layers, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads x {cfg.resolved_head_dim}, "
+        f"cache {cache_len}): prefill of {DECODE_BATCH} x {DECODE_PROMPT} "
+        f"in {time.perf_counter() - t0:.2f} s, launches {launched}")
+    caches = {"plain": cache,
+              "sharded": [{b: {k: t.clone() for k, t in d.items()}
+                           for b, d in layer.items()} for layer in cache]}
+    nxt = logits[:, -1].argmax(-1, keepdim=True)
+    worst, toks = 0.0, {"plain": [], "sharded": []}
+    secs = {"plain": 0.0, "sharded": 0.0}
+    for i in range(DECODE_STEPS):
+        pos = torch.full((DECODE_BATCH, 1), DECODE_PROMPT + i,
+                         dtype=torch.int32, device=dev)
+        out = {}
+        for kind, ctx in ctxs.items():
+            model.ctx = ctx
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, caches[kind] = model.decode_step(nxt, caches[kind], pos)
+            torch.cuda.synchronize()
+            secs[kind] += time.perf_counter() - t0
+            out[kind] = lg[:, -1].float()
+            toks[kind].append(out[kind].argmax(-1).tolist())
+        model.ctx = ctxs["plain"]
+        assert bool(torch.isfinite(out["sharded"]).all()), i
+        delta = float((out["sharded"] - out["plain"]).abs().max())
+        limit = bf16_steps(float(out["plain"].abs().max()), LM_LOGIT_STEPS)
+        worst = max(worst, delta / limit)
+        assert delta <= limit, (i, delta, limit)
+        nxt = out["plain"].argmax(-1, keepdim=True)    # the same tokens
+    log(f"sharded decode: {DECODE_STEPS} steps over a {DECODE_MESH} mesh "
+        f"of the card, worst step {worst:.3f} of its {LM_LOGIT_STEPS} bf16 "
+        f"steps at the largest logit; mean step "
+        f"{secs['plain'] / DECODE_STEPS * 1e3:.1f} ms unsharded, "
+        f"{secs['sharded'] / DECODE_STEPS * 1e3:.1f} ms sharded; peak "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    log(f"  tokens, unsharded: {np.array(toks['plain']).T.tolist()}")
+    log(f"  tokens, sharded:   {np.array(toks['sharded']).T.tolist()}")
+    del model, cache, caches
+    torch.cuda.empty_cache()
+    return launched
+
+
 def lm_phases(dev) -> dict:
-    """Phases 6-9: the LM kernels' parity, the LM serve paths, their
-    kernels on the paths' inputs, training.  Returns what the record
-    needs of the LM routes: launch totals, errors, limits, cases and
-    times."""
+    """Phases 6-10: the LM kernels' parity, the LM serve paths, their
+    kernels on the paths' inputs, training, the dry run and the sharded
+    flash-decode.  Returns what the record needs of the LM routes: launch
+    totals, errors, limits, cases and times."""
     import torch
 
     # phase 6
@@ -3622,7 +3823,7 @@ def lm_phases(dev) -> dict:
     # families, 9d float32 card against CPU and the resume, 9a the
     # kernels on what 9b-9c launched them with)
     t_train = time.perf_counter()
-    launched, rec = train_full(dev)
+    launched, rec, measured = train_full(dev)
     for name, n in launched.items():
         totals[name] += n
     train_recs = {TRAIN_ARCH + " (train)": rec}
@@ -3643,6 +3844,21 @@ def lm_phases(dev) -> dict:
     torch.cuda.empty_cache()
     log(f"train phase 9a: {time.perf_counter() - t0:.1f} s; phase 9: "
         f"{time.perf_counter() - t_train:.1f} s")
+
+    # phase 10: the dry run (every cell, then 9b's step against its
+    # measurement) and the sharded flash-decode at full width
+    t_dry = time.perf_counter()
+    dryrun_sweep()
+    log(f"phase 10a: {time.perf_counter() - t_dry:.1f} s")
+    t0 = time.perf_counter()
+    dryrun_train_cell(measured)
+    log(f"phase 10b: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    for name, n in sharded_decode(dev).items():
+        totals[name] += n
+    torch.cuda.empty_cache()
+    log(f"phase 10c: {time.perf_counter() - t0:.1f} s; phase 10: "
+        f"{time.perf_counter() - t_dry:.1f} s")
 
     names = tuple(totals)
     return {"totals": totals, "times": times,
@@ -3747,9 +3963,8 @@ def main() -> int:
         print("chip_smoke: src/repro_torch not found beside this script",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
     dev = torch.device("cuda", 0)
-    if args.lm_phases:                       # the second process: 6-9
+    if args.lm_phases:                       # the second process: 6-10
         from repro_torch.kernels import build
         build.BUILD_DIR = ROOT / "build" / "chip_smoke_kernels"
         build.library()                      # built by the first process
@@ -3794,10 +4009,10 @@ def main() -> int:
     kernel_parity(dev)
     log(f"parity phase: {time.perf_counter() - t0:.1f} s")
 
-    # phases 6-9 (the LM side: kernel parity, serving, training) run in a
-    # second process on the same card, started now, while phases 3-5
-    # (the compaction side, host-bound) run here; its output is printed
-    # after phase 5's
+    # phases 6-10 (the LM side: kernel parity, serving, training, the dry
+    # run and the sharded decode) run in a second process on the same
+    # card, started now, while phases 3-5 (the compaction side,
+    # host-bound) run here; its output is printed after phase 5's
     lm_json = build.BUILD_DIR / "lm_phases.json"
     lm_log = build.BUILD_DIR / "lm_phases.log"
     with open(lm_log, "w") as out:
@@ -3813,7 +4028,7 @@ def main() -> int:
             child.wait()
     sys.stdout.write(lm_log.read_text())
     sys.stdout.flush()
-    assert rc == 0, f"the LM phases (6-9) failed: exit {rc}"
+    assert rc == 0, f"the LM phases (6-10) failed: exit {rc}"
     lm = json.loads(lm_json.read_text())
     TOTALS.update(lm["totals"])
     times.update(lm["times"])

@@ -48,24 +48,38 @@ def _flatten(tree, prefix: str = "") -> list[tuple[str, object]]:
     return out
 
 
-def _restore(tree, loaded: dict, prefix: str = ""):
-    """``tree`` with each tensor leaf given its saved value in place and
-    each int leaf replaced."""
+def _restore(tree, loaded: dict, shardings=None, prefix: str = ""):
+    """``tree`` with each tensor leaf given its saved value (in place, or
+    as a new tensor on its sharding's device where ``shardings`` gives
+    one) and each int leaf replaced."""
     if hasattr(tree, "_fields"):
-        return type(tree)(*(_restore(v, loaded, f"{prefix}{k}/")
+        return type(tree)(*(_restore(v, loaded, _sub(shardings, k),
+                                     f"{prefix}{k}/")
                             for k, v in zip(tree._fields, tree)))
     if isinstance(tree, dict):
-        return {k: _restore(v, loaded, f"{prefix}{k}/")
+        return {k: _restore(v, loaded, _sub(shardings, k), f"{prefix}{k}/")
                 for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_restore(v, loaded, f"{prefix}{i}/")
+        return type(tree)(_restore(v, loaded, _sub(shardings, i),
+                                   f"{prefix}{i}/")
                           for i, v in enumerate(tree))
     value = loaded[prefix[:-1]]
     if isinstance(tree, torch.Tensor):
+        if shardings is not None:
+            return value.to(shardings.device)
         with torch.no_grad():
             tree.copy_(value)
         return tree
     return type(tree)(value)
+
+
+def _sub(shardings, key):
+    """The sharding subtree of ``key`` (None: no shardings given)."""
+    if shardings is None:
+        return None
+    if hasattr(shardings, "_fields") and isinstance(key, str):
+        return getattr(shardings, key)
+    return shardings[key]
 
 
 def latest_step(root: str) -> int | None:
@@ -150,10 +164,14 @@ class Checkpointer:
                               ignore_errors=True)
 
     # -- restore ---------------------------------------------------------------
-    def restore(self, like, step: int | None = None):
+    def restore(self, like, step: int | None = None, shardings=None):
         """Restore into ``like`` (a state of the same structure): its
         tensors take the saved values in place (a model's parameters
-        among them), its ints are replaced.  Returns (state, step)."""
+        among them), its ints are replaced.  ``shardings``: a tree of
+        ``dist.sharding.Sharding`` matching ``like``; each tensor is then
+        restored as a new tensor on its sharding's device (elastic
+        re-shard onto the mesh of ``dist.elastic.remesh``).  Returns
+        (state, step)."""
         if step is None:
             step = latest_step(self.root)
         if step is None:
@@ -168,4 +186,4 @@ class Checkpointer:
                     d, m["file"])), m["dtype"])
             else:
                 loaded[m["key"]] = m["value"]
-        return _restore(like, loaded), step
+        return _restore(like, loaded, shardings), step

@@ -5,6 +5,7 @@ from . import (dbrx_132b, internvl2_2b, llama3_2_1b, llama3_405b,
                mamba2_780m, moonshot_v1_16b_a3b, qwen2_0_5b, qwen3_32b,
                recurrentgemma_2b, whisper_medium)
 from .base import ArchConfig, reduced  # noqa: F401
+from .shapes import SHAPES, ShapeSpec, applicable  # noqa: F401
 
 ARCHS: dict[str, ArchConfig] = {
     m.CONFIG.name: m.CONFIG

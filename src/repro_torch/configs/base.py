@@ -5,9 +5,8 @@ under the same names, and the same :func:`reduced` scaling of them, so
 a configuration here and its JAX twin describe the same network, and
 the same derived sizes (``homogeneous``, ``d_inner``, ``ssm_heads``,
 ``n_params`` ...), and the training policy (``optimizer``,
-``opt_state_dtype``, ``remat``, ``fsdp``, ``grad_accum``).  The JAX
-schema's mesh-layout fields (``tp``, ``seq_shard``) are left out: the
-port trains on one card.
+``opt_state_dtype``, ``remat``, ``fsdp``, ``grad_accum``) and the mesh
+layout (``tp``, ``seq_shard``) that ``dist/sharding.py`` reads.
 """
 from __future__ import annotations
 
@@ -59,8 +58,14 @@ class ArchConfig:
     optimizer: Literal["adamw", "adafactor"] = "adamw"
     opt_state_dtype: str = "float32"
     remat: bool = True                  # recompute each layer in backward
-    # training policy: fsdp keeps the gradient accumulator in param_dtype
+    # layout on a mesh (dist/sharding.py): tp shards vocab, ff, heads,
+    # experts and the RG-LRU width over the "model" axis (False: pure data
+    # parallelism, the batch may take "model" too); fsdp shards "embed"
+    # over "data" and keeps the gradient accumulator in param_dtype;
+    # seq_shard lets the residual stream's sequence take "model"
+    tp: bool = True
     fsdp: bool = False
+    seq_shard: bool = False
     grad_accum: int = 1                 # microbatch accumulation steps
     tied_embeddings: bool = True
 
@@ -164,6 +169,7 @@ def reduced(cfg: ArchConfig, **overrides) -> ArchConfig:
         dtype="float32",
         param_dtype="float32",
         fsdp=False,
+        seq_shard=False,
         grad_accum=1,
     )
     scale.update(overrides)

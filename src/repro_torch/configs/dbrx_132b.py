@@ -8,5 +8,5 @@ CONFIG = ArchConfig(
     d_ff=10_752, vocab_size=100_352, head_dim=128,
     n_experts=16, experts_per_token=4, moe_d_ff=10_752,
     rope_theta=500_000.0, tied_embeddings=False,
-    fsdp=True, grad_accum=2,
+    fsdp=True, seq_shard=True, grad_accum=2,
 )

@@ -9,5 +9,5 @@ CONFIG = ArchConfig(
     d_ff=8192, vocab_size=92_553, head_dim=128,
     rope_theta=1_000_000.0,
     frontend="vision_stub", frontend_tokens=256, frontend_dim=1024,
-    tied_embeddings=True,
+    tied_embeddings=True, seq_shard=True,
 )

@@ -6,5 +6,5 @@ CONFIG = ArchConfig(
     name="llama3.2-1b", family="dense",
     n_layers=16, d_model=2048, n_heads=32, n_kv_heads=8,
     d_ff=8192, vocab_size=128_256, head_dim=64,
-    rope_theta=500_000.0, tied_embeddings=True,
+    rope_theta=500_000.0, tied_embeddings=True, seq_shard=True,
 )

@@ -7,5 +7,5 @@ CONFIG = ArchConfig(
     n_layers=126, d_model=16_384, n_heads=128, n_kv_heads=8,
     d_ff=53_248, vocab_size=128_256, head_dim=128,
     rope_theta=500_000.0, tied_embeddings=False,
-    optimizer="adafactor", fsdp=True, grad_accum=8,
+    optimizer="adafactor", fsdp=True, seq_shard=True, grad_accum=8,
 )

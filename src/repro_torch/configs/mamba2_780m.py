@@ -7,5 +7,5 @@ CONFIG = ArchConfig(
     n_layers=48, d_model=1536, n_heads=0, n_kv_heads=0,
     d_ff=0, vocab_size=50_280,
     ssm_state=128, ssm_expand=2, ssm_head_dim=64, ssm_chunk=256,
-    tied_embeddings=True,
+    tied_embeddings=True, seq_shard=True,
 )

@@ -8,5 +8,5 @@ CONFIG = ArchConfig(
     d_ff=1408, vocab_size=163_840, head_dim=128,
     n_experts=64, experts_per_token=6, moe_d_ff=1408,
     rope_theta=50_000.0, tied_embeddings=True,
-    fsdp=True,
+    fsdp=True, seq_shard=True,
 )

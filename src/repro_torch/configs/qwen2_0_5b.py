@@ -7,5 +7,7 @@ CONFIG = ArchConfig(
     n_layers=24, d_model=896, n_heads=14, n_kv_heads=2,
     d_ff=4864, vocab_size=151_936, head_dim=64,
     qkv_bias=True, rope_theta=1_000_000.0,
-    tied_embeddings=True,
+    # 14 heads / kv=2 divide no wide model axis, and at 0.5B pure data
+    # parallelism beats tensor parallelism: tp=False
+    tied_embeddings=True, tp=False, seq_shard=True,
 )

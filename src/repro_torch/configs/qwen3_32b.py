@@ -8,5 +8,5 @@ CONFIG = ArchConfig(
     d_ff=25_600, vocab_size=151_936, head_dim=128,
     qk_norm=True, rope_theta=1_000_000.0,
     tied_embeddings=False,
-    fsdp=True,
+    fsdp=True, seq_shard=True,
 )

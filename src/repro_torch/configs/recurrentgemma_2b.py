@@ -8,5 +8,5 @@ CONFIG = ArchConfig(
     d_ff=7680, vocab_size=256_000, head_dim=256,
     layer_pattern=("rglru", "rglru", "local"),
     window=2048, rglru_width=2560,
-    tied_embeddings=True,
+    tied_embeddings=True, seq_shard=True,
 )

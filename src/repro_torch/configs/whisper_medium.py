@@ -10,5 +10,5 @@ CONFIG = ArchConfig(
     d_ff=4096, vocab_size=51_865, head_dim=64,
     rope_theta=0.0, encoder_layers=24,
     frontend="audio_stub", frontend_tokens=1500,
-    tied_embeddings=True,
+    tied_embeddings=True, seq_shard=True,
 )

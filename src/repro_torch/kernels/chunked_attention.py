@@ -18,11 +18,16 @@ plain torch:
 - :func:`decode_attention`: an online softmax over key chunks with an
   additive bias, never the whole (B, Hkv, G, S) probability tensor at
   once.  Serving only (no backward).
+- :func:`decode_attention_sharded`: the same over a cache whose sequence
+  is split over a mesh axis, single-controller: each shard's online
+  softmax on its entry's device, then the three combines the JAX
+  ``pmax``/``psum`` do.
 """
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from .flash_attention import EMPTY_LSE, flash_attention
@@ -46,6 +51,14 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q: (B, Hkv, G, hd); k, v: (B, Hkv, S, hd); bias: (B, S) additive
     (0 = attend, ``NEG_INF`` = masked ring-buffer slot).  Scores are
     scaled by ``1 / sqrt(hd)``.  Returns (B, Hkv, G, hd) in q's dtype."""
+    _, l, acc = _decode_stats(q, k, v, bias)
+    l = torch.clamp(l, min=1e-30)
+    return (acc / l[..., None]).to(q.dtype)
+
+
+def _decode_stats(q, k, v, bias):
+    """The online softmax of :func:`decode_attention` before its division:
+    (m, l, acc), float32, (B, Hkv, G), (B, Hkv, G), (B, Hkv, G, hd)."""
     b, hkv, g, d = q.shape
     s = k.shape[2]
     kc = _pick_chunk(s, CHUNK)
@@ -65,8 +78,85 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         l = l * alpha + p.sum(-1)
         acc = acc * alpha[..., None] + torch.einsum("bkgs,bksd->bkgd", p, vj)
         m = m_new
-    l = torch.clamp(l, min=1e-30)
-    return (acc / l[..., None]).to(q.dtype)
+    return m, l, acc
+
+
+def _axes(entry) -> tuple[str, ...]:
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, tuple) else (entry,)
+
+
+def decode_attention_sharded(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, bias: torch.Tensor, *, mesh,
+                             seq_axis: str = "model", q_spec=None,
+                             kv_spec=None, bias_spec=None) -> torch.Tensor:
+    """Flash-decode over a SEQUENCE-SHARDED KV cache (the JAX
+    ``decode_attention_sharded``), single-controller like
+    ``models.blocks.moe_shard_map``.
+
+    The cache's S splits into equal contiguous shards over the entries of
+    ``seq_axis``; where ``kv_spec`` shards the batch (its first entry:
+    mesh axes), the batch splits over those axes' entries too.  Each
+    shard runs :func:`decode_attention`'s online softmax on its local
+    keys on its entry's device, and the shards' statistics combine as the
+    JAX ``pmax``/``psum`` do: ``m* = max m``, ``l* = sum l e^(m - m*)``,
+    ``acc* = sum acc e^(m - m*)``, out = ``acc* / l*``.
+
+    q: (B, Hkv, G, hd) (``q_spec``: replicated over ``seq_axis``); k, v:
+    (B, Hkv, S, hd) sharded over ``seq_axis`` on dim 2 (``kv_spec``, by
+    default ``P(None, None, seq_axis, None)``); bias: (B, S) additive
+    (``bias_spec``, by default ``P(None, seq_axis)``).  Returns (B, Hkv,
+    G, hd) in q's dtype on q's device.
+    """
+    ks = tuple(kv_spec) if kv_spec is not None else (None, None, seq_axis,
+                                                      None)
+    bs = tuple(bias_spec) if bias_spec is not None else (None, seq_axis)
+    qs = tuple(q_spec) if q_spec is not None else (None,) * 4
+    if ks[2] != seq_axis or bs[1] != seq_axis or seq_axis in _axes(qs[2]):
+        raise ValueError(f"decode_attention_sharded splits S over "
+                         f"{seq_axis!r}: kv_spec {ks}, bias_spec {bs}, "
+                         f"q_spec {qs}")
+    names = list(mesh.axis_names)
+    b_axes = _axes(ks[0])
+    if _axes(bs[0]) != b_axes or _axes(qs[0]) != b_axes:
+        raise ValueError(f"q, kv and bias must shard the batch alike: "
+                         f"{qs[0]}, {ks[0]}, {bs[0]}")
+    # the entries that hold a distinct shard: every batch axis and the
+    # sequence axis; one replica (index 0) of every other axis
+    keep = [a for a in names if a in b_axes or a == seq_axis]
+    grid = mesh.devices[tuple(slice(None) if a in keep else 0
+                              for a in names)]
+    grid = np.moveaxis(grid, keep.index(seq_axis), -1)
+    n_seq = grid.shape[-1]
+    grid = grid.reshape(-1, n_seq)                # (batch shards, S shards)
+    b, s = q.shape[0], k.shape[2]
+    if s % n_seq or b % grid.shape[0]:
+        raise ValueError(f"S={s} and B={b} must divide the mesh's "
+                         f"{n_seq} sequence and {grid.shape[0]} batch "
+                         f"shards")
+    bl, sl = b // grid.shape[0], s // n_seq
+    outs = []
+    for i, row in enumerate(grid):
+        rows = slice(i * bl, (i + 1) * bl)
+        stats = []
+        for j, dev in enumerate(row):
+            cols = slice(j * sl, (j + 1) * sl)
+            m, l, acc = _decode_stats(
+                q[rows].to(dev), k[rows, :, cols].to(dev),
+                v[rows, :, cols].to(dev), bias[rows, cols].to(dev))
+            stats.append((m.to(q.device), l.to(q.device),
+                          acc.to(q.device)))
+        m_g = stats[0][0]
+        for m, _, _ in stats[1:]:
+            m_g = torch.maximum(m_g, m)              # the pmax
+        l_g, acc_g = 0, 0
+        for m, l, acc in stats:                      # the two psums
+            corr = torch.exp(m - m_g)
+            l_g = l_g + l * corr
+            acc_g = acc_g + acc * corr[..., None]
+        outs.append(acc_g / torch.clamp(l_g, min=1e-30)[..., None])
+    return torch.cat(outs).to(q.dtype)
 
 
 def _rows(t: int, s: int, k0: int, k1: int, causal: bool,
@@ -251,16 +341,17 @@ def bf16_grad_row_limits(q, k, v, dout, want, out, lse, *,
 
 class _Attention(torch.autograd.Function):
     """GQA attention with the hand-written backward: the flash kernel's
-    forward (with its LSE) on CUDA, the plain chunked one on the CPU."""
+    forward (with its LSE) on CUDA (its meta op on ``meta``), the plain
+    chunked one on the CPU."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, chunk):
-        if q.device.type == "cuda":
-            out, lse = flash_attention(q, k, v, causal=causal, window=window,
-                                       return_lse=True)
-        else:
+        if q.device.type == "cpu":
             out, lse = _fwd_plain(q, k, v, causal, window,
                                   _pick_chunk(k.shape[2], chunk))
+        else:                           # the kernel (its meta op: dry run)
+            out, lse = flash_attention(q, k, v, causal=causal, window=window,
+                                       return_lse=True)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.args = (causal, window, chunk)
         return out

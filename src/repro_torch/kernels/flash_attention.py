@@ -41,13 +41,18 @@ nothing more than before.
 
 Dispatch goes by the tensor's device: a CPU tensor runs
 :func:`flash_attention_plain`, a CUDA tensor launches a kernel (or
-raises).  ``tensor_core_launches`` and ``cuda_core_launches`` count each
-kernel's launches, ``launches`` their sum, and nothing else.
+raises), and a ``meta`` tensor (the dry run) goes through
+:data:`meta_op`, which returns empty outputs of the right shapes and
+stands for the kernel's own work (:func:`work`), never the plain
+version's (B, Hq, T, S) scores.  ``tensor_core_launches`` and
+``cuda_core_launches`` count each kernel's launches, ``launches`` their
+sum, and nothing else.
 """
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from . import ref
@@ -78,6 +83,52 @@ def _check_args(q, k, v, window):
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1 or None, got {window}")
+
+
+def attended_pairs(t: int, s: int, causal: bool = True,
+                   window: int | None = None) -> int:
+    """Query-key pairs a head attends: the True entries of
+    ``ref.attention_mask(t, s, causal, window)``, counted without
+    building it."""
+    qpos = np.arange(t, dtype=np.int64) + (s - t)
+    lo = np.maximum(qpos - window + 1, 0) if window is not None else 0
+    hi = np.minimum(qpos, s - 1) if causal else np.full(t, s - 1)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def work(q_shape, kv_shape, dtype: torch.dtype, *, causal: bool = True,
+         window: int | None = None, return_lse: bool = False
+         ) -> tuple[int, int]:
+    """(flops, bytes) the kernel must do for one call: ``4 * D`` flops
+    per attended (query, key) pair and q-head (QK^T and PV), and one read
+    of q, k, v and one write of the output (and of the float32 LSE).
+    ``chip_smoke.py``'s bound and the dry run's count read this."""
+    b, hq, t, d = q_shape
+    s = kv_shape[2]
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    q_elems = b * hq * t * d
+    kv_elems = b * kv_shape[1] * s * d
+    nbytes = (2 * q_elems + 2 * kv_elems) * itemsize
+    if return_lse:
+        nbytes += 4 * b * hq * t
+    return 4 * d * hq * b * attended_pairs(t, s, causal, window), nbytes
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def meta_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            causal: bool, window: int, return_lse: bool
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's stand-in on ``meta`` tensors (``window`` 0: none); the
+    LSE is (B, Hq, T) with ``return_lse``, else empty."""
+    raise NotImplementedError("flash_attention's meta op runs on meta "
+                              "tensors only")
+
+
+@meta_op.register_fake
+def _(q, k, v, causal, window, return_lse):
+    b, hq, t, _ = q.shape
+    return torch.empty_like(q), q.new_empty(
+        (b, hq, t) if return_lse else (0,), dtype=torch.float32)
 
 
 def kernel_for(dtype: torch.dtype, d: int) -> str:
@@ -158,8 +209,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      return_lse=return_lse)
+    if q.device.type == "meta":
+        _check_args(q, k, v, window)
+        out, lse = meta_op(q, k, v, causal, window or 0, return_lse)
+        return (out, lse) if return_lse else out
     if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cpu or cuda, not "
+        raise ValueError(f"flash_attention runs on cpu, cuda or meta, not "
                          f"{q.device}")
     _check_args(q, k, v, window)
     b, hq, t, d = q.shape

@@ -20,8 +20,10 @@ is one rounded multiply then one rounded add in both versions, so the
 kernel equals :func:`linear_scan_plain` bit for bit.
 
 Dispatch goes by the tensor's device: a CPU tensor runs
-:func:`linear_scan_plain`, a CUDA tensor launches the kernel (or raises).
-``launches`` counts kernel launches and nothing else.
+:func:`linear_scan_plain`, a CUDA tensor launches the kernel (or raises),
+and a ``meta`` tensor (the dry run) goes through :data:`meta_op`, empty
+outputs of the right shapes standing for the kernel's own work
+(:func:`work`).  ``launches`` counts kernel launches and nothing else.
 
 Training goes through :func:`linear_scan_autograd`, a
 ``torch.autograd.Function`` around the same wrapper.  Its backward is
@@ -33,6 +35,7 @@ shifted inputs, in float32; on the CPU it runs the plain version.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import ref
@@ -53,6 +56,31 @@ def _check_args(x, a, h0):
                            or not h0.dtype.is_floating_point):
         raise ValueError(f"h0 must be float ({x.shape[0]}, {x.shape[2]}), "
                          f"got {tuple(h0.shape)} {h0.dtype}")
+
+
+def work(x_shape, dtype: torch.dtype, has_h0: bool) -> tuple[int, int]:
+    """(flops, bytes) the kernel must do for one call: a multiply and an
+    add per element and step; x and a read once, the states written
+    once, the float32 final state written (and h0 read).
+    ``chip_smoke.py``'s bound and the dry run's count read this."""
+    b, _, d = x_shape
+    n = int(np.prod(x_shape))
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    return 2 * n, 3 * n * itemsize + 4 * b * d * (2 if has_h0 else 1)
+
+
+@torch.library.custom_op("repro_torch::linear_scan", mutates_args=())
+def meta_op(x: torch.Tensor, a: torch.Tensor, h0: torch.Tensor | None
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's stand-in on ``meta`` tensors."""
+    raise NotImplementedError("linear_scan's meta op runs on meta tensors "
+                              "only")
+
+
+@meta_op.register_fake
+def _(x, a, h0):
+    return torch.empty_like(x), x.new_empty((x.shape[0], x.shape[2]),
+                                            dtype=torch.float32)
 
 
 def linear_scan_plain(x: torch.Tensor, a: torch.Tensor,
@@ -76,8 +104,12 @@ def linear_scan(x: torch.Tensor, a: torch.Tensor,
     global launches
     if x.device.type == "cpu":
         return linear_scan_plain(x, a, h0)
+    if x.device.type == "meta":
+        _check_args(x, a, h0)
+        return meta_op(x, a, h0)
     if x.device.type != "cuda":
-        raise ValueError(f"linear_scan runs on cpu or cuda, not {x.device}")
+        raise ValueError(f"linear_scan runs on cpu, cuda or meta, not "
+                         f"{x.device}")
     _check_args(x, a, h0)
     if x.dtype not in _DTYPES:
         raise TypeError(f"linear_scan kernel takes float32 or bfloat16, got "

@@ -26,7 +26,8 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops as kops
-from ..kernels.chunked_attention import NEG_INF, decode_attention
+from ..kernels.chunked_attention import (NEG_INF, decode_attention,
+                                         decode_attention_sharded)
 from .common import SpecModule, TSpec, rms_norm, rope, torch_dtype
 
 # position of an empty cache slot: never <= a query position
@@ -35,16 +36,22 @@ EMPTY_POS = (2**31 - 1) // 2
 
 @dataclasses.dataclass(frozen=True)
 class Ctx:
-    """Per-call context: the config, the decode cache's length and the
-    MoE implementation (``ragged``: dropless, one device; ``shard_map``:
+    """Per-call context: the config, the decode cache's length, the MoE
+    implementation (``ragged``: dropless, one device; ``shard_map``:
     expert-parallel over ``mesh``'s ``model`` axis with a static
-    per-expert capacity of ``moe_capacity_factor`` times the even
-    share)."""
+    per-expert capacity of ``moe_capacity_factor`` times the even share)
+    and ``decode_kv_specs``: (q, kv, bias) specs that, with ``mesh`` set,
+    send decode attention through
+    :func:`~..kernels.chunked_attention.decode_attention_sharded` over a
+    sequence-sharded cache.  The JAX ``Ctx``'s sharding hints (``act_spec``,
+    ``q_spec``, ``kv_spec`` ...) have no meaning in eager torch and are
+    not kept; the dry run computes them from ``dist.sharding``."""
     cfg: object
     cache_len: int = 0
     moe_impl: str = "ragged"
     mesh: object = None
     moe_capacity_factor: float = 1.25
+    decode_kv_specs: object = None
 
 
 # ---------------------------------------------------------------------------
@@ -56,19 +63,19 @@ def attn_specs(cfg) -> dict[str, TSpec]:
     h, kv = cfg.n_heads, cfg.n_kv_heads
     pd = cfg.param_dtype
     p = {
-        "wq": TSpec((d, h * hd), pd),
-        "wk": TSpec((d, kv * hd), pd),
-        "wv": TSpec((d, kv * hd), pd),
-        "wo": TSpec((h * hd, d), pd, init="scaled"),
-        "ln": TSpec((d,), "float32", init="zeros"),
+        "wq": TSpec((d, h * hd), pd, ("embed", "heads")),
+        "wk": TSpec((d, kv * hd), pd, ("embed", "heads")),
+        "wv": TSpec((d, kv * hd), pd, ("embed", "heads")),
+        "wo": TSpec((h * hd, d), pd, ("heads", "embed"), init="scaled"),
+        "ln": TSpec((d,), "float32", ("embed",), init="zeros"),
     }
     if cfg.qkv_bias:
-        p["bq"] = TSpec((h * hd,), "float32", init="zeros")
-        p["bk"] = TSpec((kv * hd,), "float32", init="zeros")
-        p["bv"] = TSpec((kv * hd,), "float32", init="zeros")
+        p["bq"] = TSpec((h * hd,), "float32", ("heads",), init="zeros")
+        p["bk"] = TSpec((kv * hd,), "float32", ("heads",), init="zeros")
+        p["bv"] = TSpec((kv * hd,), "float32", ("heads",), init="zeros")
     if cfg.qk_norm:
-        p["q_norm"] = TSpec((hd,), "float32", init="zeros")
-        p["k_norm"] = TSpec((hd,), "float32", init="zeros")
+        p["q_norm"] = TSpec((hd,), "float32", (None,), init="zeros")
+        p["k_norm"] = TSpec((hd,), "float32", (None,), init="zeros")
     return p
 
 
@@ -102,12 +109,18 @@ def attn_prefill_cache(k: torch.Tensor, v: torch.Tensor,
 def attn_cache_specs(cfg, batch: int, cache_len: int, dtype: str,
                      window: int | None = None) -> dict[str, TSpec]:
     """The decode cache :func:`attn_prefill_cache` builds: a global layer
-    keeps ``cache_len`` slots, a windowed one ``min(cache_len, window)``."""
+    keeps ``cache_len`` slots, a windowed one ``min(cache_len, window)``.
+    Sharding (the JAX ladder): batch over DP, kv-heads over TP; where the
+    kv-heads do not divide the model axis the sequence takes it
+    (flash-decode, :func:`~..kernels.chunked_attention.
+    decode_attention_sharded`), and "hd" is the last resort."""
     hd, kv = cfg.resolved_head_dim, cfg.n_kv_heads
     s = min(cache_len, window) if window else cache_len
-    return {"k": TSpec((batch, kv, s, hd), dtype, init="zeros"),
-            "v": TSpec((batch, kv, s, hd), dtype, init="zeros"),
-            "pos": TSpec((batch, s), "int32", init="zeros")}
+    kv_axes = ("batch", "heads", "seq", "hd")
+    return {"k": TSpec((batch, kv, s, hd), dtype, kv_axes, init="zeros"),
+            "v": TSpec((batch, kv, s, hd), dtype, kv_axes, init="zeros"),
+            "pos": TSpec((batch, s), "int32", ("batch", "seq"),
+                         init="zeros")}
 
 
 class Attention(SpecModule):
@@ -177,7 +190,13 @@ class Attention(SpecModule):
             group = cfg.n_heads // cfg.n_kv_heads
             qg = qh[:, :, 0].reshape(b, cfg.n_kv_heads, group, hd)
             bias = torch.where(valid, 0.0, NEG_INF)           # (B, S)
-            o = decode_attention(qg, ck, cv, bias)
+            if ctx.decode_kv_specs is not None and ctx.mesh is not None:
+                qs, ks, bs = ctx.decode_kv_specs
+                o = decode_attention_sharded(qg, ck, cv, bias,
+                                             mesh=ctx.mesh, q_spec=qs,
+                                             kv_spec=ks, bias_spec=bs)
+            else:
+                o = decode_attention(qg, ck, cv, bias)
             out = o.reshape(b, cfg.n_heads, 1, hd).to(x.dtype)
         else:                                               # prefill
             kh = k.transpose(1, 2).contiguous()
@@ -198,10 +217,10 @@ class Attention(SpecModule):
 def mlp_specs(cfg) -> dict[str, TSpec]:
     d, f, pd = cfg.d_model, cfg.d_ff, cfg.param_dtype
     return {
-        "w_gate": TSpec((d, f), pd),
-        "w_up": TSpec((d, f), pd),
-        "w_down": TSpec((f, d), pd, init="scaled"),
-        "ln": TSpec((d,), "float32", init="zeros"),
+        "w_gate": TSpec((d, f), pd, ("embed", "ff")),
+        "w_up": TSpec((d, f), pd, ("embed", "ff")),
+        "w_down": TSpec((f, d), pd, ("ff", "embed"), init="scaled"),
+        "ln": TSpec((d,), "float32", ("embed",), init="zeros"),
     }
 
 
@@ -229,11 +248,12 @@ def moe_specs(cfg) -> dict[str, TSpec]:
     d, pd = cfg.d_model, cfg.param_dtype
     e, f = cfg.n_experts, (cfg.moe_d_ff or cfg.d_ff)
     return {
-        "router": TSpec((d, e), "float32"),
-        "w_gate": TSpec((e, d, f), pd),
-        "w_up": TSpec((e, d, f), pd),
-        "w_down": TSpec((e, f, d), pd, init="scaled"),
-        "ln": TSpec((d,), "float32", init="zeros"),
+        "router": TSpec((d, e), "float32", ("embed", None)),
+        "w_gate": TSpec((e, d, f), pd, ("experts", "embed", "ff")),
+        "w_up": TSpec((e, d, f), pd, ("experts", "embed", "ff")),
+        "w_down": TSpec((e, f, d), pd, ("experts", "ff", "embed"),
+                        init="scaled"),
+        "ln": TSpec((d,), "float32", ("embed",), init="zeros"),
     }
 
 
@@ -405,14 +425,17 @@ def rglru_specs(cfg) -> dict[str, TSpec]:
     d, pd = cfg.d_model, cfg.param_dtype
     w = cfg.rglru_width or d
     return {
-        "w_x": TSpec((d, w), pd),
-        "w_y": TSpec((d, w), pd),
-        "conv": TSpec((cfg.conv_width, w), "float32"),
-        "w_a": TSpec((w, w), pd),
-        "w_i": TSpec((w, w), pd),
-        "lam": TSpec((w,), "float32", init="ones"),
-        "w_out": TSpec((w, d), pd, init="scaled"),
-        "ln": TSpec((d,), "float32", init="zeros"),
+        "w_x": TSpec((d, w), pd, ("embed", "rnn")),
+        "w_y": TSpec((d, w), pd, ("embed", "rnn")),
+        "conv": TSpec((cfg.conv_width, w), "float32", (None, "rnn")),
+        # the gates column-parallel (output dim sharded), as in the JAX
+        # package: sharding the contraction dim would all-reduce the
+        # full-width (B, T, W) gates every layer
+        "w_a": TSpec((w, w), pd, (None, "rnn")),
+        "w_i": TSpec((w, w), pd, (None, "rnn")),
+        "lam": TSpec((w,), "float32", ("rnn",), init="ones"),
+        "w_out": TSpec((w, d), pd, ("rnn", "embed"), init="scaled"),
+        "ln": TSpec((d,), "float32", ("embed",), init="zeros"),
     }
 
 
@@ -436,9 +459,10 @@ def causal_conv(x: torch.Tensor, kernel: torch.Tensor,
 
 def rglru_cache_specs(cfg, batch: int) -> dict[str, TSpec]:
     w = cfg.rglru_width or cfg.d_model
-    return {"state": TSpec((batch, w), "float32", init="zeros"),
+    return {"state": TSpec((batch, w), "float32", ("batch", "rnn"),
+                           init="zeros"),
             "conv": TSpec((batch, cfg.conv_width - 1, w), "float32",
-                          init="zeros")}
+                          ("batch", None, "rnn"), init="zeros")}
 
 
 class RGLRU(SpecModule):
@@ -476,14 +500,15 @@ def ssd_specs(cfg) -> dict[str, TSpec]:
     d, pd = cfg.d_model, cfg.param_dtype
     di, ns, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
     return {
-        "w_in": TSpec((d, 2 * di + 2 * ns + h), pd),
-        "conv": TSpec((cfg.conv_width, di + 2 * ns), "float32"),
-        "dt_bias": TSpec((h,), "float32", init="zeros"),
-        "a_log": TSpec((h,), "float32", init="zeros"),
-        "d_skip": TSpec((h,), "float32", init="zeros"),
-        "norm": TSpec((di,), "float32", init="zeros"),
-        "w_out": TSpec((di, d), pd, init="scaled"),
-        "ln": TSpec((d,), "float32", init="zeros"),
+        "w_in": TSpec((d, 2 * di + 2 * ns + h), pd, ("embed", "ff")),
+        "conv": TSpec((cfg.conv_width, di + 2 * ns), "float32",
+                      (None, "ff")),
+        "dt_bias": TSpec((h,), "float32", (None,), init="zeros"),
+        "a_log": TSpec((h,), "float32", (None,), init="zeros"),
+        "d_skip": TSpec((h,), "float32", (None,), init="zeros"),
+        "norm": TSpec((di,), "float32", ("ff",), init="zeros"),
+        "w_out": TSpec((di, d), pd, ("ff", "embed"), init="scaled"),
+        "ln": TSpec((d,), "float32", ("embed",), init="zeros"),
     }
 
 
@@ -493,9 +518,10 @@ def ssd_cache_specs(cfg, batch: int) -> dict[str, TSpec]:
     type, as the JAX package does)."""
     di, ns = cfg.d_inner, cfg.ssm_state
     return {"state": TSpec((batch, cfg.ssm_heads, ns, cfg.ssm_head_dim),
-                           "float32", init="zeros"),
+                           "float32", ("batch", "ff", None, None),
+                           init="zeros"),
             "conv": TSpec((batch, cfg.conv_width - 1, di + 2 * ns),
-                          "float32", init="zeros")}
+                          "float32", ("batch", None, "ff"), init="zeros")}
 
 
 def ssd_split(cfg, zxbcdt: torch.Tensor):

@@ -2,7 +2,7 @@
 the fused cross-entropy.
 
 The port's copy of ``repro/models/common.py`` without sharding hints.  A
-:class:`TSpec` names a parameter's shape, dtype and init;
+:class:`TSpec` names a parameter's shape, dtype, logical axes and init;
 :class:`SpecModule` turns a dict of them into ``nn.Parameter``s under
 the JAX package's names, so the JAX param tree maps onto ``state_dict``
 keys one for one.
@@ -14,7 +14,8 @@ import dataclasses
 import torch
 from torch import nn
 
-DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "int32": torch.int32}
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -23,10 +24,23 @@ def torch_dtype(name: str) -> torch.dtype:
 
 @dataclasses.dataclass(frozen=True)
 class TSpec:
-    """Tensor spec: shape, dtype and init (normal | scaled | zeros | ones)."""
+    """Tensor spec: shape, dtype, logical sharding axes (one per dim, or
+    none) and init (normal | scaled | zeros | ones).
+
+    Logical axes vocabulary: "vocab", "embed", "ff", "heads", "experts",
+    "layers", "rnn", "batch", "seq", "hd", None.  ``dist/sharding.py``
+    maps them to mesh axes per config.  The port keeps one tensor per
+    layer, so its specs carry no "layers" axis: each equals its JAX
+    twin's with that leading axis stripped.
+    """
     shape: tuple[int, ...]
     dtype: str = "bfloat16"
+    axes: tuple[str | None, ...] = ()
     init: str = "normal"
+
+    def __post_init__(self):
+        if self.axes and len(self.axes) != len(self.shape):
+            raise ValueError(f"axes {self.axes} rank != shape {self.shape}")
 
 
 class SpecModule(nn.Module):

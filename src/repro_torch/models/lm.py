@@ -78,7 +78,8 @@ def _layer_cache_specs(cfg, kind: str, batch: int,
             window=cfg.window if kind == "local" else None)}
         if "xattn" in _layer_blocks(cfg, kind):
             kv = TSpec((batch, cfg.n_kv_heads, cfg.frontend_tokens,
-                        cfg.resolved_head_dim), cfg.dtype, init="zeros")
+                        cfg.resolved_head_dim), cfg.dtype,
+                       ("batch", "heads", None, "hd"), init="zeros")
             c["xattn"] = {"k": kv, "v": kv}
         return c
     if kind == "ssd":
@@ -149,10 +150,12 @@ class Encoder(SpecModule):
     @staticmethod
     def top_specs(cfg) -> dict[str, TSpec]:
         fd = cfg.frontend_dim or cfg.d_model
-        return {"in_proj": TSpec((fd, cfg.d_model), cfg.param_dtype),
+        return {"in_proj": TSpec((fd, cfg.d_model), cfg.param_dtype,
+                                 (None, "embed")),
                 "pos_embed": TSpec((cfg.frontend_tokens, cfg.d_model),
-                                   cfg.param_dtype),
-                "final_ln": TSpec((cfg.d_model,), "float32", init="zeros")}
+                                   cfg.param_dtype, (None, "embed")),
+                "final_ln": TSpec((cfg.d_model,), "float32", ("embed",),
+                                  init="zeros")}
 
     def forward(self, ctx: Ctx, frames: torch.Tensor,
                 dtype: torch.dtype, remat: bool = False) -> torch.Tensor:
@@ -189,13 +192,14 @@ class LM(SpecModule):
     weights are drawn from it (:func:`~.common.init_from_specs`);
     without one they stay uninitialized for ``load_state_dict``.
     ``moe_impl``, ``mesh`` and ``moe_capacity_factor`` choose the MoE
-    path (:class:`~.blocks.Ctx`).
+    path, ``mesh`` and ``decode_kv_specs`` the sequence-sharded decode
+    attention (:class:`~.blocks.Ctx`).
     """
 
     def __init__(self, cfg, *, device="cuda",
                  generator: torch.Generator | None = None,
                  moe_impl: str = "ragged", mesh=None,
-                 moe_capacity_factor: float = 1.25):
+                 moe_capacity_factor: float = 1.25, decode_kv_specs=None):
         check_supported(cfg)
         dev = resolve_device(device)
         super().__init__(self.top_specs(cfg), dev)
@@ -203,7 +207,8 @@ class LM(SpecModule):
         self.device = dev
         self.dtype = torch_dtype(cfg.dtype)
         self.ctx = Ctx(cfg=cfg, moe_impl=moe_impl, mesh=mesh,
-                       moe_capacity_factor=moe_capacity_factor)
+                       moe_capacity_factor=moe_capacity_factor,
+                       decode_kv_specs=decode_kv_specs)
         self.layers = nn.ModuleList(Layer(cfg, k, dev) for k in cfg.pattern)
         self.encoder = Encoder(cfg, dev) if cfg.encoder_layers else None
         if generator is not None:
@@ -212,15 +217,19 @@ class LM(SpecModule):
     @staticmethod
     def top_specs(cfg) -> dict[str, TSpec]:
         pd = cfg.param_dtype
-        p = {"embed": TSpec((cfg.vocab_size, cfg.d_model), pd),
-             "final_ln": TSpec((cfg.d_model,), "float32", init="zeros")}
+        p = {"embed": TSpec((cfg.vocab_size, cfg.d_model), pd,
+                            ("vocab", "embed")),
+             "final_ln": TSpec((cfg.d_model,), "float32", ("embed",),
+                               init="zeros")}
         if not cfg.tied_embeddings:
-            p["lm_head"] = TSpec((cfg.d_model, cfg.vocab_size), pd)
+            p["lm_head"] = TSpec((cfg.d_model, cfg.vocab_size), pd,
+                                 ("embed", "vocab"))
         if cfg.rope_theta == 0:
-            p["pos_embed"] = TSpec((MAX_LEARNED_POS, cfg.d_model), pd)
+            p["pos_embed"] = TSpec((MAX_LEARNED_POS, cfg.d_model), pd,
+                                   (None, "embed"))
         if cfg.frontend == "vision_stub":
             p["frontend_proj"] = TSpec((cfg.frontend_dim or cfg.d_model,
-                                        cfg.d_model), pd)
+                                        cfg.d_model), pd, (None, "embed"))
         return p
 
     @classmethod

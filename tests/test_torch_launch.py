@@ -43,8 +43,8 @@ def _built_config(monkeypatch, module, argv):
 
 
 def _same(port, jax_cfg, **expect):
-    """Every field of the port's config equals the JAX config's (the JAX
-    schema's mesh-layout fields aside), after ``expect``."""
+    """Every field of the port's config equals the JAX config's, after
+    ``expect``."""
     want = {f.name: getattr(jax_cfg, f.name)
             for f in dataclasses.fields(port)}
     want.update(expect)

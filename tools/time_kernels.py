@@ -30,7 +30,10 @@ bit, float32 flash within 1e-5, bf16 flash within each row's
 ``bf16_row_limit``), then timed two ways: CUDA events around
 back-to-back calls of the wrapper (five repeats after warm-up calls),
 and the kernel's own device time per launch from ``torch.profiler``.
-Prints the card's name and power limit, then one JSON line per kernel.
+Each flash line carries its bound, the kernel module's ``work`` at the
+card's published peaks (``repro_torch.launch.mesh``), as
+``chip_smoke.py`` reckons it (so ``ROOT`` must have both).  Prints the card's name and power limit,
+then one JSON line per kernel.
 """
 from __future__ import annotations
 
@@ -95,6 +98,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     sys.path.insert(0, str(root / "src"))
     from repro_torch.kernels import flash_attention, sig_hash
+    from repro_torch.launch import mesh
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -105,7 +109,7 @@ def main() -> int:
     if args.only != "flash":
         time_sig_hash(sig_hash, root, rng, dev, args.valid_rows)
     if args.only != "sig_hash":
-        time_flash(flash_attention, root, rng, dev)
+        time_flash(flash_attention, mesh, root, rng, dev)
     return 0
 
 
@@ -128,8 +132,18 @@ def time_sig_hash(mod, root, rng, dev, n_valid):
                       **rec}), flush=True)
 
 
-def time_flash(mod, root, rng, dev):
-    """``mod`` is the checkout's ``repro_torch.kernels.flash_attention``."""
+def bound_ms(mod, peaks, q, kv, dtype, window) -> float:
+    """The least time of one flash call on the card: the larger of its
+    bytes over HBM and its operations over the type's peak."""
+    flops, nbytes = mod.work(q, kv, dtype, causal=True, window=window)
+    peak = (peaks.PEAK_FLOPS_BF16 if dtype == torch.bfloat16
+            else peaks.PEAK_FLOPS_F32)
+    return max(nbytes / peaks.HBM_BW, flops / peak) * 1e3
+
+
+def time_flash(mod, peaks, root, rng, dev):
+    """``mod`` is the checkout's ``repro_torch.kernels.flash_attention``,
+    ``peaks`` its ``repro_torch.launch.mesh``."""
     q, kk, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)
                                  ).to(dev) for s in (FLASH_Q, FLASH_KV,
                                                      FLASH_KV))
@@ -141,6 +155,8 @@ def time_flash(mod, root, rng, dev):
                 10, 2)
     print(json.dumps({"root": str(root), "kernel": "flash_attention float32",
                       "shape": [*FLASH_Q, FLASH_WINDOW], "max_abs_err": err,
+                      "bound_ms": bound_ms(mod, peaks, FLASH_Q, FLASH_KV,
+                                           torch.float32, FLASH_WINDOW),
                       **rec}), flush=True)
     for qs, kvs, window in BF16_CASES:
         q, kk, v = (torch.from_numpy(rng.standard_normal(s).astype(
@@ -157,7 +173,10 @@ def time_flash(mod, root, rng, dev):
         print(json.dumps({"root": str(root),
                           "kernel": "flash_attention bf16",
                           "shape": [*qs, kvs[1], window],
-                          "max_abs_err": float(delta.max()), **rec}),
+                          "max_abs_err": float(delta.max()),
+                          "bound_ms": bound_ms(mod, peaks, qs, kvs,
+                                               torch.bfloat16, window),
+                          **rec}),
               flush=True)
 
 
