@@ -29,6 +29,7 @@ from typing import Iterable, Sequence
 
 import numpy as np
 
+from .. import obs
 from ..core import sweep as core_sweep
 from ..core.factorize import (FactorizationResult, apply_molecule_map,
                               factorize_classes)
@@ -327,8 +328,13 @@ class CompactionPlanner:
     def detect(self, store: TripleStore, class_id: int,
                props: Sequence[int] | None = None) -> FSPResult:
         """Run the configured detector on one class."""
-        return self.detector.detect(store, int(class_id),
-                                    backend=self.backend, props=props)
+        cid = int(class_id)
+        with obs.span("detect", class_id=cid) as sp:
+            res = self.detector.detect(store, cid, backend=self.backend,
+                                       props=props)
+            sp.set(am=int(res.am), n_s=len(
+                props if props is not None else store.class_properties(cid)))
+        return res
 
     def _shard_planner(self, sid: int) -> "CompactionPlanner":
         """Per-shard clone: same detector/backend instances, a shard-
@@ -358,6 +364,11 @@ class CompactionPlanner:
         over an out-of-core-scale graph holds at most one class's
         working set uncompressed at a time -- peak host memory is bounded
         by the largest class bucket, not the graph."""
+        with obs.span("plan"):
+            return self._plan(store, classes, stream=stream,
+                              sharded_graph=sharded_graph)
+
+    def _plan(self, store, classes, *, stream, sharded_graph):
         if sharded_graph is not None:
             out = {}
             for sid, snap in enumerate(sharded_graph.snapshots):
@@ -401,12 +412,14 @@ class CompactionPlanner:
         """Factorize every planned class transactionally into a fresh
         snapshot.  The input store is never mutated."""
         t0 = time.perf_counter()
-        pairs = [(e.class_id, e.props) for e in plan]
-        graph, results = factorize_classes(
-            store, pairs, surrogate_prefix=self.surrogate_prefix)
-        # star_objects rows are aligned with surrogates and ordered over
-        # sorted props -- the molecule tables build with no rescan of G'
-        fg = FactorizedGraph.from_compaction(graph, results)
+        with obs.span("execute"):
+            pairs = [(e.class_id, e.props) for e in plan]
+            graph, results = factorize_classes(
+                store, pairs, surrogate_prefix=self.surrogate_prefix)
+            # star_objects rows are aligned with surrogates and ordered
+            # over sorted props -- the molecule tables build with no
+            # rescan of G'
+            fg = FactorizedGraph.from_compaction(graph, results)
         snap = GraphSnapshot(fgraph=fg, epoch=epoch)
         report = CompactionReport(
             graph=graph, plan=plan, factorizations=results,

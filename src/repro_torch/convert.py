@@ -30,6 +30,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from . import obs
 from .core.triples import TermDict, TripleStore
 
 
@@ -39,7 +40,8 @@ def store_from_arrays(terms: Sequence[str], spo: np.ndarray) -> TripleStore:
     spo = np.asarray(spo, np.int32).reshape(-1, 3)
     if spo.size and (spo.min() < 0 or spo.max() >= len(terms)):
         raise ValueError("spo holds ids outside the dictionary")
-    return TripleStore.from_ids(TermDict.from_terms(terms), spo)
+    with obs.span("store.load", rows=int(spo.shape[0])):
+        return TripleStore.from_ids(TermDict.from_terms(terms), spo)
 
 
 def _flatten(tree, prefix: str = ""):

@@ -650,13 +650,12 @@ class CompressedGraphIndex(GraphIndex):
             self._props_cache[class_id] = props
         return props
 
-    def object_matrix(self, class_id: int, props, strict: bool = False
-                      ) -> tuple[np.ndarray, np.ndarray]:
+    def _object_matrix(self, class_id: int, props: np.ndarray,
+                       strict: bool) -> tuple[np.ndarray, np.ndarray]:
         """Same semantics as the plain index, but the join streams ONE
         predicate partition at a time into the (|C|, |SP|) output --
         transient decode is bounded by the largest single partition, not
         the sum over SP."""
-        props = np.asarray(list(props), dtype=np.int32)
         ents = self.entities_of_class(class_id)
         if ents.size == 0 or props.size == 0:
             return ents[:0], np.empty((0, props.size), np.int32)

@@ -17,6 +17,7 @@ from typing import Sequence
 
 import numpy as np
 
+from .. import obs
 from .star import row_groups
 from .triples import TripleStore
 
@@ -76,16 +77,17 @@ def _class_nle_nodes(store: TripleStore, class_id: int) -> tuple[int, int]:
     this definition the headline numbers reproduce exactly: Measurement/A8
     savings -> 66.6% as AMI/AM -> 0 (3n -> n + 3*AMI edges) and
     Observation/A4 -> -16.67% when AMI == AM (6n -> 7n edges)."""
-    ents = store.entities_of_class(class_id)
-    # surrogates are entities of C too after factorization (sg type C);
-    # instanceOf subjects are the original entities.
-    inst_subj = store.spo[store.spo[:, 1] == store.INSTANCE_OF, 0]
-    subjects = np.union1d(ents, inst_subj)
-    mask = np.isin(store.spo[:, 0], subjects)
-    nle = int(mask.sum())
-    touched = store.spo[mask]
-    nodes = np.unique(np.concatenate([touched[:, 0], touched[:, 2]]))
-    return nle, int(nodes.shape[0])
+    with obs.span("count"):
+        ents = store.entities_of_class(class_id)
+        # surrogates are entities of C too after factorization (sg type
+        # C); instanceOf subjects are the original entities.
+        inst_subj = store.spo[store.spo[:, 1] == store.INSTANCE_OF, 0]
+        subjects = np.union1d(ents, inst_subj)
+        mask = np.isin(store.spo[:, 0], subjects)
+        nle = int(mask.sum())
+        touched = store.spo[mask]
+        nodes = np.unique(np.concatenate([touched[:, 0], touched[:, 2]]))
+        return nle, int(nodes.shape[0])
 
 
 def apply_molecule_map(spo: np.ndarray, mu_keys: np.ndarray,
@@ -139,25 +141,36 @@ def _factorize(store: TripleStore, class_id: int, props: Sequence[int],
     ``surrogate_start`` offsets the surrogate ordinals so a later pass
     can mint fresh names that never collide with an earlier one.
     """
+    with obs.span("factorize", class_id=int(class_id)):
+        return _factorize_class(store, class_id, props, surrogate_prefix,
+                                surrogate_start)
+
+
+def _factorize_class(store, class_id, props, surrogate_prefix,
+                     surrogate_start) -> FactorizationResult:
     props_arr = np.asarray(sorted(int(p) for p in props), dtype=np.int32)
     ents, objmat = store.object_matrix(class_id, props_arr)
     nle_before, nn_before = _class_nle_nodes(store, class_id)
 
     # -- lines 2-7: group entities by object tuple, mint surrogates --------
     # (one bulk TermDict.ids() allocation, not a per-group id() loop)
-    inv, counts, rep = row_groups(objmat)
-    n_groups = int(counts.shape[0])
-    cname = store.dict.term(class_id)
-    surrogate_ids = store.dict.ids(
-        [f"{surrogate_prefix}/{cname}/{surrogate_start + g}"
-         for g in range(n_groups)]).astype(np.int32)
-    mu = dict(zip(ents.tolist(), surrogate_ids[inv].tolist()))
+    with obs.span("mint") as sp:
+        inv, counts, rep = row_groups(objmat)
+        n_groups = int(counts.shape[0])
+        cname = store.dict.term(class_id)
+        surrogate_ids = store.dict.ids(
+            [f"{surrogate_prefix}/{cname}/{surrogate_start + g}"
+             for g in range(n_groups)]).astype(np.int32)
+        mu = dict(zip(ents.tolist(), surrogate_ids[inv].tolist()))
+        sp.set(groups=n_groups)
 
     # -- lines 8-29: rebuild the edge set, vectorized ----------------------
-    new_spo = apply_molecule_map(store.spo, ents, surrogate_ids[inv],
-                                 props_arr, class_id, store.TYPE,
-                                 store.INSTANCE_OF)
-    gprime = TripleStore.from_ids(store.dict, new_spo)  # dedups (set union)
+    with obs.span("rewrite") as sp:
+        new_spo = apply_molecule_map(store.spo, ents, surrogate_ids[inv],
+                                     props_arr, class_id, store.TYPE,
+                                     store.INSTANCE_OF)
+        gprime = TripleStore.from_ids(store.dict, new_spo)  # dedups
+        sp.set(rows=gprime.n_triples)
 
     nle_after, nn_after = _class_nle_nodes(gprime, class_id)
     return FactorizationResult(

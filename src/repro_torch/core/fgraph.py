@@ -32,6 +32,7 @@ from typing import Iterable, Mapping, Sequence
 
 import numpy as np
 
+from .. import obs
 from .index import (PSO_PERM, SPO_PERM, _key_view, csr_take, in_sorted,
                     sort_unique)
 from .star import num_edges
@@ -380,14 +381,16 @@ class FactorizedGraph:
         """Build from ``factorize_classes`` output (the
         ``FactorizationResult`` list carries aligned surrogate /
         star-object arrays, so no rescan of G' is needed)."""
-        tables: dict[int, MoleculeTable] = {}
-        for res in results:
-            tables[int(res.class_id)] = MoleculeTable(
-                class_id=int(res.class_id),
-                props=tuple(sorted(int(p) for p in res.props)),
-                surrogates=res.surrogates, objects=res.star_objects,
-                next_ordinal=int(res.surrogates.shape[0]))
-        return cls(graph, tables, **kw)
+        with obs.span("fgraph.build") as sp:
+            tables: dict[int, MoleculeTable] = {}
+            for res in results:
+                tables[int(res.class_id)] = MoleculeTable(
+                    class_id=int(res.class_id),
+                    props=tuple(sorted(int(p) for p in res.props)),
+                    surrogates=res.surrogates, objects=res.star_objects,
+                    next_ordinal=int(res.surrogates.shape[0]))
+            sp.set(molecules=sum(t.n_molecules for t in tables.values()))
+            return cls(graph, tables, **kw)
 
     def with_store(self, store: TripleStore) -> "FactorizedGraph":
         """Re-host the same tables on a semantically identical store

@@ -33,6 +33,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from .. import obs
+
 # column permutations: spo rows are stored (s, p, o); sort keys differ
 SPO_PERM = (0, 1, 2)      # TripleStore.spo canonical order
 PSO_PERM = (1, 0, 2)      # GraphIndex row order
@@ -244,6 +246,13 @@ class GraphIndex:
         instead of O(|SP|) sequential per-predicate joins.
         """
         props = np.asarray(list(props), dtype=np.int32)
+        with obs.span("extract", cols=int(props.size)) as sp:
+            ents, objmat = self._object_matrix(class_id, props, strict)
+            sp.set(rows=int(ents.shape[0]))
+        return ents, objmat
+
+    def _object_matrix(self, class_id: int, props: np.ndarray,
+                       strict: bool) -> tuple[np.ndarray, np.ndarray]:
         ents = self.entities_of_class(class_id)
         if ents.size == 0 or props.size == 0:
             return ents[:0], np.empty((0, props.size), np.int32)

@@ -27,6 +27,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from .. import obs
 from ..kernels import ops as kops
 from .triples import TripleStore
 
@@ -123,13 +124,16 @@ def star_groups(store: TripleStore, class_id: int, props: Sequence[int]
     the shared object tuple.  This is what Algorithm 3 consumes.
     """
     props = np.asarray(list(props), dtype=np.int32)
-    ents, objmat = store.object_matrix(class_id, props)
-    inv, counts, rep = row_groups(objmat)
-    order = np.argsort(inv, kind="stable")
-    boundaries = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
-    sorted_ents = ents[order]
-    return [(sorted_ents[boundaries[g]:boundaries[g + 1]], objmat[rep[g]])
-            for g in range(counts.shape[0])]
+    with obs.span("star_groups") as sp:
+        ents, objmat = store.object_matrix(class_id, props)
+        inv, counts, rep = row_groups(objmat)
+        order = np.argsort(inv, kind="stable")
+        boundaries = np.concatenate([[0], np.cumsum(counts)]).astype(
+            np.int64)
+        sorted_ents = ents[order]
+        sp.set(groups=int(counts.shape[0]))
+        return [(sorted_ents[boundaries[g]:boundaries[g + 1]],
+                 objmat[rep[g]]) for g in range(counts.shape[0])]
 
 
 # ---------------------------------------------------------------------------

@@ -33,6 +33,7 @@ from typing import Protocol, Sequence, runtime_checkable
 import numpy as np
 import torch
 
+from .. import obs
 from .star import (StarSweepResult, ami, ami_device_batch, num_edges,
                    num_edges_batch)
 from .triples import TripleStore
@@ -222,7 +223,8 @@ class _WorkspaceBase:
 
     def evaluate_current(self) -> StarSweepResult:
         # exact host arithmetic over the already-extracted parent matrix
-        a = ami(self.matrix[:, self._active]) if self._active else 0
+        with obs.span("ami.host", rows=int(self.matrix.shape[0])):
+            a = ami(self.matrix[:, self._active]) if self._active else 0
         return StarSweepResult(
             props=self.props, ami=a, am=self.am, n_total_props=self.n_s,
             edges=num_edges(a, self.am, self.k, self.n_s))
@@ -267,15 +269,16 @@ class HostSweepWorkspace(_WorkspaceBase):
     def sweep_candidates(self, col_masks) -> tuple[np.ndarray, np.ndarray]:
         masks = self._normalize_masks(col_masks)
         EXEC_STATS["descents"] += 1
-        n = self.matrix.shape[0]
-        amis = np.empty((masks.shape[0],), np.int64)
-        for i in range(masks.shape[0]):
-            cols = np.flatnonzero(masks[i])
-            # zero surviving columns: every row is the same empty tuple
-            amis[i] = ami(self.matrix[:, cols]) if cols.size \
-                else (1 if n else 0)
-        n_sp = (masks != 0).sum(axis=1)
-        edges = num_edges_batch(amis, self.am, n_sp, self.n_s)
+        n, k = self.matrix.shape
+        with obs.span("sweep", candidates=masks.shape[0], n_b=n, k_b=k):
+            amis = np.empty((masks.shape[0],), np.int64)
+            for i in range(masks.shape[0]):
+                cols = np.flatnonzero(masks[i])
+                # zero surviving columns: every row is the same empty tuple
+                amis[i] = ami(self.matrix[:, cols]) if cols.size \
+                    else (1 if n else 0)
+            n_sp = (masks != 0).sum(axis=1)
+            edges = num_edges_batch(amis, self.am, n_sp, self.n_s)
         return edges, amis
 
 
@@ -325,9 +328,8 @@ class DeviceSweepWorkspace(_WorkspaceBase):
         # the drop-one stack spans FULL bucket height so the sweep shape
         # is invariant across descent levels (one shape per bucket, not
         # per (bucket, |SP|) pair); no-op rows are discarded
-        self._ensure_uploaded()
         edges, amis = self.sweep_candidates(
-            self._drop_one_stack(self.k_bucket))
+            self._drop_one_stack(bucket_cols(len(self._all_props))))
         act = np.asarray(self._active)
         return edges[act], amis[act]
 
@@ -344,19 +346,21 @@ class DeviceSweepWorkspace(_WorkspaceBase):
     def sweep_candidates(self, col_masks) -> tuple[np.ndarray, np.ndarray]:
         masks = self._normalize_masks(col_masks)
         EXEC_STATS["descents"] += 1
-        self._ensure_uploaded()
         n_cand, k_all = masks.shape
-        edges_out = np.empty((n_cand,), np.int64)
-        amis_out = np.empty((n_cand,), np.int64)
-        for lo in range(0, n_cand, MAX_SWEEP_CANDIDATES):
-            chunk = masks[lo:lo + MAX_SWEEP_CANDIDATES]
-            c_b = bucket_candidates(chunk.shape[0])
-            stack = np.zeros((c_b, self.k_bucket), np.int32)
-            stack[:chunk.shape[0], :k_all] = chunk
-            edges, amis = self._run_batch(stack)
-            m = chunk.shape[0]
-            edges_out[lo:lo + m] = edges[:m]
-            amis_out[lo:lo + m] = amis[:m]
+        with obs.span("sweep", candidates=n_cand) as sp:
+            self._ensure_uploaded()
+            sp.set(n_b=self.n_bucket, k_b=self.k_bucket)
+            edges_out = np.empty((n_cand,), np.int64)
+            amis_out = np.empty((n_cand,), np.int64)
+            for lo in range(0, n_cand, MAX_SWEEP_CANDIDATES):
+                chunk = masks[lo:lo + MAX_SWEEP_CANDIDATES]
+                c_b = bucket_candidates(chunk.shape[0])
+                stack = np.zeros((c_b, self.k_bucket), np.int32)
+                stack[:chunk.shape[0], :k_all] = chunk
+                edges, amis = self._run_batch(stack)
+                m = chunk.shape[0]
+                edges_out[lo:lo + m] = edges[:m]
+                amis_out[lo:lo + m] = amis[:m]
         return edges_out, amis_out
 
 

@@ -25,6 +25,7 @@ from typing import Iterable, Sequence
 
 import numpy as np
 
+from .. import obs
 from .index import (GraphIndex, SPO_PERM, in_sorted, merge_disjoint,
                     setdiff_rows, sort_unique)
 
@@ -173,7 +174,9 @@ class TripleStore:
     def index(self) -> GraphIndex:
         """The lazily-built per-predicate CSR index over ``spo``."""
         if self._index is None:
-            self._index = GraphIndex(self._spo, self.TYPE, self.INSTANCE_OF)
+            with obs.span("index.build", rows=self.n_triples):
+                self._index = GraphIndex(self._spo, self.TYPE,
+                                         self.INSTANCE_OF)
         return self._index
 
     # -- construction ------------------------------------------------------
