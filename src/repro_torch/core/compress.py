@@ -47,7 +47,7 @@ from typing import Sequence
 
 import numpy as np
 
-from .index import GraphIndex, PSO_PERM, SPO_PERM, _key_view, in_sorted
+from .index import GraphIndex, PSO_PERM, SPO_PERM, in_sorted, sort_rows
 from .triples import TripleStore
 
 # -- decode accounting --------------------------------------------------------
@@ -494,9 +494,8 @@ class CompressedGraphIndex(GraphIndex):
                  *, _presorted: bool = False,
                  max_resident: int | None = 8) -> None:
         rows = np.ascontiguousarray(spo, dtype=np.int32).reshape(-1, 3)
-        if not _presorted and rows.shape[0] > 1:
-            order = np.argsort(_key_view(rows, PSO_PERM), kind="stable")
-            rows = rows[order]
+        if not _presorted:
+            rows = sort_rows(rows, PSO_PERM)
         self.type_id = int(type_id)
         self.instance_of_id = int(instance_of_id)
         if rows.shape[0]:

@@ -18,6 +18,7 @@ from typing import Sequence
 import numpy as np
 
 from .. import obs
+from .index import last_key
 from .star import row_groups
 from .triples import TripleStore
 
@@ -170,7 +171,7 @@ def _factorize_class(store, class_id, props, surrogate_prefix,
                                      props_arr, class_id, store.TYPE,
                                      store.INSTANCE_OF)
         gprime = TripleStore.from_ids(store.dict, new_spo)  # dedups
-        sp.set(rows=gprime.n_triples)
+        sp.set(rows=gprime.n_triples, key=last_key())
 
     nle_after, nn_after = _class_nle_nodes(gprime, class_id)
     return FactorizationResult(

@@ -33,7 +33,7 @@ from typing import Iterable, Mapping, Sequence
 import numpy as np
 
 from .. import obs
-from .index import (PSO_PERM, SPO_PERM, _key_view, csr_take, in_sorted,
+from .index import (PSO_PERM, SPO_PERM, csr_take, in_sorted, row_keys,
                     sort_unique)
 from .star import num_edges
 from .triples import TripleStore
@@ -198,8 +198,7 @@ def _keep_mask(rows: np.ndarray, drop: np.ndarray, perm) -> np.ndarray:
     keep = np.ones(rows.shape[0], bool)
     if rows.shape[0] == 0:
         return keep
-    keys = _key_view(rows, perm)
-    d = _key_view(sort_unique(drop, perm), perm)
+    keys, d = row_keys(perm, rows, sort_unique(drop, perm))
     pos = np.searchsorted(keys, d)
     hit = pos < keys.shape[0]
     hit[hit] = keys[pos[hit]] == d[hit]
@@ -550,8 +549,7 @@ class FactorizedGraph:
         self._check_semantic_rows(rows)
         stats = DeleteStats(n_requested=int(rows.shape[0]))
         store = self.store
-        present = in_sorted(_key_view(rows, SPO_PERM),
-                            _key_view(store.spo, SPO_PERM)) \
+        present = in_sorted(*row_keys(SPO_PERM, rows, store.spo)) \
             if store.spo.shape[0] else np.zeros(rows.shape[0], bool)
         raw_del = rows[present]
         stats.n_raw_removed = int(raw_del.shape[0])

@@ -28,8 +28,27 @@ The index is immutable: ``merged`` returns a new ``GraphIndex`` sharing
 nothing mutable with its parent except lazily-filled caches that remain
 valid for both.  ``TripleStore`` builds one lazily and carries it across
 ``copy()`` / ``add_ids`` / ``restrict_subjects``.
+
+Every sort and binary search over triple rows goes through one key,
+built by :func:`row_keys`: each row packed into one non-negative int64,
+``(a << (w_b + w_c)) | (b << w_c) | c`` with the columns in the sort's
+order and ``w_j`` the bit width of column j's largest id.  Widths are
+read from the input, so the key orders rows exactly as the
+lexicographic (a, b, c) order does, and ``np.sort`` of the keys
+followed by unpacking replaces an argsort and a gather.  Where the
+widths sum past 63 bits or an id is negative, the key falls back to a
+structured (void) view of the row: the same order, but NumPy compares
+such records field by field through a generic call, an order of
+magnitude slower to sort than one integer.  Keys that are compared
+with each other (``searchsorted``, ``in_sorted``) must come from ONE
+call, so that they share widths.  ``KEY_COUNTS`` counts the keys built
+by kind (``"packed"``/``"void"``) and :func:`last_key` gives the kind
+of this thread's newest one, for the spans around the sorts.
 """
 from __future__ import annotations
+
+import collections
+import threading
 
 import numpy as np
 
@@ -41,6 +60,18 @@ PSO_PERM = (1, 0, 2)      # GraphIndex row order
 
 _KEY_DTYPE = np.dtype([("a", np.int32), ("b", np.int32), ("c", np.int32)])
 
+# keys built by row_keys, by kind: "packed" (one int64) or "void"
+KEY_COUNTS: collections.Counter = collections.Counter()
+# ``.kind``: the kind of the newest key built in this thread
+_last = threading.local()
+
+
+def last_key() -> str | None:
+    """The kind (``"packed"``/``"void"``) of the newest row key built in
+    this thread, None before the first: a span around one sort reads the
+    path its sort took."""
+    return getattr(_last, "kind", None)
+
 
 def _key_view(rows: np.ndarray, perm) -> np.ndarray:
     """Structured (void) view of (n, 3) int32 rows under column order
@@ -49,19 +80,90 @@ def _key_view(rows: np.ndarray, perm) -> np.ndarray:
     return arr.view(_KEY_DTYPE).ravel()
 
 
-def sort_unique(rows: np.ndarray, perm=SPO_PERM) -> np.ndarray:
-    """Sort (n, 3) rows by the ``perm`` column order and drop duplicates.
-    Unlike ``np.unique(axis=0)`` the key order is configurable."""
+def _shifts(perm, arrays) -> tuple[int, int] | None:
+    """``(w_b + w_c, w_c)`` for packing the rows of every array in
+    ``arrays`` under ``perm``, or None where an id is negative or the
+    widths sum past 63 bits."""
+    arrays = [a for a in arrays if a.shape[0]]
+    if any(int(a.min()) < 0 for a in arrays):
+        return None
+    widths = [max(1, max((int(a[:, j].max()) for a in arrays),
+                         default=0).bit_length()) for j in perm]
+    if sum(widths) > 63:
+        return None
+    return widths[1] + widths[2], widths[2]
+
+
+def _pack(rows: np.ndarray, perm, shifts: tuple[int, int]) -> np.ndarray:
+    hi, lo = shifts
+    key = rows[:, perm[0]].astype(np.int64)
+    key <<= hi - lo
+    key |= rows[:, perm[1]]
+    key <<= lo
+    key |= rows[:, perm[2]]
+    return key
+
+
+def _unpack(keys: np.ndarray, perm, shifts: tuple[int, int]) -> np.ndarray:
+    hi, lo = shifts
+    rows = np.empty((keys.shape[0], 3), np.int32)
+    rows[:, perm[0]] = keys >> hi
+    rows[:, perm[1]] = (keys >> lo) & ((1 << (hi - lo)) - 1)
+    rows[:, perm[2]] = keys & ((1 << lo) - 1)
+    return rows
+
+
+def _row_keys(perm, arrays) -> tuple[tuple[np.ndarray, ...],
+                                     tuple[int, int] | None]:
+    arrays = [np.asarray(a, np.int32).reshape(-1, 3) for a in arrays]
+    shifts = _shifts(perm, arrays)
+    kind = "void" if shifts is None else "packed"
+    KEY_COUNTS[kind] += len(arrays)
+    _last.kind = kind
+    if shifts is None:
+        return tuple(_key_view(a, perm) for a in arrays), None
+    return tuple(_pack(a, perm, shifts) for a in arrays), shifts
+
+
+def row_keys(perm, *arrays: np.ndarray) -> tuple[np.ndarray, ...]:
+    """One sort/search key per row of each (n, 3) array, ordered as the
+    rows are under the column order ``perm``: a packed int64 where the
+    columns fit, else the structured view (see the module docstring).
+    All arrays of one call share their widths, so their keys compare
+    with each other; keys of two calls may not."""
+    return _row_keys(perm, arrays)[0]
+
+
+def sort_rows(rows: np.ndarray, perm=SPO_PERM, unique: bool = False
+              ) -> np.ndarray:
+    """(n, 3) int32 rows sorted by the ``perm`` column order, without
+    duplicates if ``unique``.  Equal keys are equal rows, so the sort
+    need not be stable."""
     rows = np.ascontiguousarray(rows, dtype=np.int32).reshape(-1, 3)
     if rows.shape[0] <= 1:
         return rows
-    key = _key_view(rows, perm)
-    order = np.argsort(key, kind="stable")
-    rows = rows[order]
-    keep = np.empty(rows.shape[0], bool)
+    (key,), shifts = _row_keys(perm, (rows,))
+    if shifts is None:
+        rows = rows[np.argsort(key, kind="stable")]
+        return rows[_run_starts(rows)] if unique else rows
+    key = np.sort(key)
+    return _unpack(key[_run_starts(key)] if unique else key, perm, shifts)
+
+
+def _run_starts(ordered: np.ndarray) -> np.ndarray:
+    """True at the first of each run of equal entries (or rows) of a
+    sorted, non-empty array."""
+    keep = np.empty(ordered.shape[0], bool)
     keep[0] = True
-    np.any(rows[1:] != rows[:-1], axis=1, out=keep[1:])
-    return rows[keep]
+    differ = ordered[1:] != ordered[:-1]
+    keep[1:] = differ.any(axis=1) if differ.ndim == 2 else differ
+    return keep
+
+
+def sort_unique(rows: np.ndarray, perm=SPO_PERM) -> np.ndarray:
+    """Sort (n, 3) rows by the ``perm`` column order and drop duplicates.
+    Unlike ``np.unique(axis=0)`` the key order is configurable."""
+    return sort_rows(rows, perm, unique=True)
 
 
 def setdiff_rows(new: np.ndarray, old: np.ndarray, perm=SPO_PERM
@@ -70,7 +172,7 @@ def setdiff_rows(new: np.ndarray, old: np.ndarray, perm=SPO_PERM
     ``perm``); order of ``new`` preserved.  O(m log n)."""
     if new.shape[0] == 0 or old.shape[0] == 0:
         return new
-    return new[~in_sorted(_key_view(new, perm), _key_view(old, perm))]
+    return new[~in_sorted(*row_keys(perm, new, old))]
 
 
 def merge_disjoint(old: np.ndarray, new: np.ndarray, perm=SPO_PERM
@@ -82,7 +184,7 @@ def merge_disjoint(old: np.ndarray, new: np.ndarray, perm=SPO_PERM
         return old
     if old.shape[0] == 0:
         return new
-    pos = np.searchsorted(_key_view(old, perm), _key_view(new, perm))
+    pos = np.searchsorted(*row_keys(perm, old, new))
     out = np.empty((old.shape[0] + new.shape[0], 3), np.int32)
     new_at = pos + np.arange(new.shape[0])
     old_mask = np.ones(out.shape[0], bool)
@@ -127,9 +229,8 @@ class GraphIndex:
     def __init__(self, spo: np.ndarray, type_id: int, instance_of_id: int,
                  *, _presorted: bool = False) -> None:
         rows = np.ascontiguousarray(spo, dtype=np.int32).reshape(-1, 3)
-        if not _presorted and rows.shape[0] > 1:
-            order = np.argsort(_key_view(rows, PSO_PERM), kind="stable")
-            rows = rows[order]
+        if not _presorted:
+            rows = sort_rows(rows, PSO_PERM)
         self.rows = rows
         self.type_id = int(type_id)
         self.instance_of_id = int(instance_of_id)

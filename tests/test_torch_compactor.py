@@ -7,10 +7,13 @@ import numpy as np
 import pytest
 
 from repro.api import Compactor as JCompactor
+from repro.core.triples import TermDict as JTermDict
 from repro.data import synthetic as jsyn
 from repro.query import QueryEngine as JQueryEngine
 from repro_torch.api import Compactor
 from repro_torch.convert import store_from_arrays
+from repro_torch.core import index
+from repro_torch.core.triples import TermDict
 from repro_torch.data import synthetic as tsyn
 from repro_torch.query import QueryEngine, StarQuery, eval_raw
 
@@ -128,3 +131,68 @@ def test_star_queries_match_reference(name):
         for got in (b, h, eng.query(q, strategy="raw"), eval_raw(store, q)):
             c = got.canonical()
             assert c.shape == want.shape and (c == want).all(), q
+
+
+class _PaddedTerms:
+    """A term list with ``n`` filler terms, made on demand, at ids
+    ``[at, at + n)``: the ids of the terms after them grow by ``n``
+    without a list of that length."""
+
+    def __init__(self, terms, at, n):
+        self._head, self._tail = list(terms[:at]), list(terms[at:])
+        self._at, self._n = at, n
+
+    def __len__(self):
+        return self._at + self._n + len(self._tail)
+
+    def __getitem__(self, i):
+        if i < self._at:
+            return self._head[i]
+        if i < self._at + self._n:
+            return f"pad/{i}"
+        return self._tail[i - self._at - self._n]
+
+    def extend(self, terms):
+        self._tail.extend(terms)
+
+    def append(self, term):
+        self._tail.append(term)
+
+
+def _padded_store(term_dict, store, pad):
+    """``store`` with every id past the predicates and classes moved up
+    by ``pad`` (order kept), over a dictionary of the same terms."""
+    spo = store.spo
+    at = int(max(spo[:, 1].max(), spo[spo[:, 1] == store.TYPE, 2].max())) + 1
+    terms = store.dict._terms
+    d = term_dict()
+    d._terms = _PaddedTerms(terms, at, pad)
+    d._index = {t: i if i < at else i + pad for i, t in enumerate(terms)}
+    spo = np.where(spo < at, spo, spo + pad).astype(np.int32)
+    return type(store).from_ids(d, spo), d
+
+
+# subject and object ids of 22 bits pack with the predicates' into one
+# int64; of 31 bits they cannot, and every row key is the void view
+@pytest.mark.parametrize("pad,kind", [(2**21, "packed"), (2**30, "void")])
+def test_compaction_with_wide_ids_matches_reference(pad, kind):
+    spec = dict(n_observations=600, seed=11)
+    ref_store, ref_dict = _padded_store(
+        JTermDict, jsyn.generate(jsyn.SensorGraphSpec(**spec)), pad)
+    store, tdict = _padded_store(
+        TermDict, tsyn.generate(tsyn.SensorGraphSpec(**spec)), pad)
+    assert store.spo.tobytes() == ref_store.spo.tobytes()
+    assert int(store.spo[:, 0].max()).bit_length() >= 22
+    ref_comp = JCompactor("gfsp", "host")
+    ref = ref_comp.run(ref_store)
+    before = dict(index.KEY_COUNTS)
+    comp = Compactor("gfsp", "device", backend_opts={"device": "cpu"})
+    got = comp.run(store)
+    moved = {k for k, v in index.KEY_COUNTS.items() if v > before.get(k, 0)}
+    assert moved == {kind}
+    assert _plan_rows(got) == _plan_rows(ref)
+    assert got.graph.spo.tobytes() == ref.graph.spo.tobytes()
+    assert comp.snapshot.digest() == ref_comp.snapshot.digest()
+    assert comp.fgraph.expand().spo.tobytes() == store.spo.tobytes()
+    assert len(tdict) == len(ref_dict)
+    assert tdict._terms._tail == ref_dict._terms._tail
