@@ -2,6 +2,11 @@
 to back, each on a fresh store over the raw rows of a graph from a pool
 made in set-up from the seed.
 
+The driver is schema-free: it takes its graphs from the generator the
+configuration names (``run.gen``, ``gen/__init__.py`` states its
+contract), so any generator that keeps that contract runs through the
+same op, reference and check.
+
 Mix numbers: ``pool`` (graphs), ``check_ops`` (ops the reference judges,
 drawn from the seed among those the window completed).
 
@@ -19,7 +24,6 @@ import time
 
 import numpy as np
 
-from ..gen import sensor as S
 from ..ref import fsp
 from ..ref.graph import Graph, rows_diff, sort_unique
 
@@ -63,8 +67,8 @@ def _control_op(terms, spo, device, spans):
 
 
 def setup(run):
-    vocab = S.Vocabulary(run.spec)
-    pool = [S.graph_rows(vocab, run.spec, run.rng(1, j))
+    vocab = run.gen.Vocabulary(run.spec)
+    pool = [run.gen.graph_rows(vocab, run.spec, run.rng(1, j))
             for j in range(int(run.traffic["pool"]))]
     op = _control_op if run.control else _program_op
     op(vocab.terms, pool[0], run.device, run.spans)     # warm every shape

@@ -73,6 +73,9 @@ class SensorSpec:
                        cfg["include_sensor_metadata"]))
 
 
+spec_from_config = SensorSpec.from_config
+
+
 class Vocabulary:
     """The term list of every graph of one spec, and the id blocks in it.
 

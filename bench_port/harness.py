@@ -3,11 +3,13 @@
     python bench_port/run.py --workload NAME --seed N --seconds S --trace 0|1
 
 A cell of ``BENCHMARK.json`` names a configuration (``configs/<name>.json``:
-the schema, scale and guarantees of a deployment) and a traffic mix
-(``traffic/<mix>.json``: numbers for one general driver,
+the schema, scale and guarantees of a deployment, and the generator of
+its graphs, ``gen/<generator>.py``, by default ``sensor``) and a traffic
+mix (``traffic/<mix>.json``: numbers for one general driver,
 ``drivers/<driver>.py``); each per-layer metric has a reader of its own,
 ``metrics/<metric>.py``.  The harness finds all of them by name, so a
-later change adds a cell, a mix or a metric by adding files and entries.
+later change adds a cell, a mix, a metric or a deployment of another
+schema by adding files and entries.
 
 A run: set-up (generate the inputs from the seed, build and warm the
 program; ``setup_s`` is the time from the process's start to the
@@ -31,7 +33,7 @@ from pathlib import Path
 
 import numpy as np
 
-from .gen.sensor import SensorSpec, seeded_rng
+from .gen.sensor import seeded_rng
 from .tracing import KernelArgs, Spans, profiled
 
 HERE = Path(__file__).resolve().parent
@@ -62,14 +64,30 @@ def applies(metric: dict, cell: str, reported: set[str]) -> bool:
     return metric.get("moves", metric["name"]) in reported
 
 
+def load_file(path: Path, mod_name: str):
+    """The module of a file found by name (dataclasses in it look their
+    module up in ``sys.modules``, so it is registered there)."""
+    spec = importlib.util.spec_from_file_location(mod_name, path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[mod_name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def metric_reader(name: str, here: Path = HERE):
     """``metrics/<name>.py``'s ``read(run)``."""
-    path = here / "metrics" / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(
-        f"bench_port_metric_{name.replace('.', '_')}", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return load_file(here / "metrics" / f"{name}.py",
+                     f"bench_port_metric_{name.replace('.', '_')}").read
+
+
+def generator(name: str, here: Path = HERE):
+    """``gen/<name>.py``, the generator a configuration names (the
+    contract is in ``gen/__init__.py``)."""
+    path = here / "gen" / f"{name}.py"
+    if not path.is_file():
+        raise FileNotFoundError(f"the configuration names the generator "
+                                f"{name!r}, and there is no {path}")
+    return load_file(path, f"bench_port_gen_{name}")
 
 
 def driver(name: str):
@@ -84,15 +102,16 @@ def forbidden_modules() -> list[str]:
 
 
 class Run:
-    """Everything one run knows: its cell, configuration, traffic,
-    device, spans, and what the driver measured."""
+    """Everything one run knows: its cell, configuration, generator and
+    spec, traffic, device, spans, and what the driver measured."""
 
     def __init__(self, name, seed, seconds, traced, device, cell, cfg,
-                 traffic, control=False):
+                 traffic, control=False, here: Path = HERE):
         self.name, self.seed, self.seconds = name, int(seed), float(seconds)
         self.traced, self.device, self.control = traced, device, control
         self.cell, self.cfg, self.traffic = cell, cfg, traffic
-        self.spec = SensorSpec.from_config(cfg)
+        self.gen = generator(cfg.get("generator", "sensor"), here)
+        self.spec = self.gen.spec_from_config(cfg)
         self.spans = Spans(device, traced)
         self.e2e: dict[str, float] = {}
         self.attempted = 0
@@ -120,7 +139,7 @@ def run_cell(workload: str, seed: int, seconds: float, traced: bool,
         (here / "traffic" / f"{cell['traffic']}.json").read_text())
     device = torch.device(device)
     run = Run(workload, seed, seconds, traced, device, cell, cfg, traffic,
-              control)
+              control, here)
     drv = driver(traffic["driver"])
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)

@@ -1,5 +1,6 @@
 """The harness end to end on the CPU: the cell found by name, a cell, a
-mix and a metric added as files, the cell correct on the program, its
+mix and a metric added as files, a configuration of another schema with
+its own generator added as files, the cell correct on the program, its
 control and every planted fault not correct, the result line's shape,
 and the isolation rules."""
 import json
@@ -97,12 +98,119 @@ def test_a_cell_mix_and_metric_added_as_files(root):
                            "layer": "planner, detectors and sweep",
                            "moves": "compact_triples_per_s"})
     (root / "BENCHMARK.json").write_text(json.dumps(b))
-    out = run_small(root, seed=3, seconds=1.0, traced=True,
-                    cell="lsd-small.compact-three")
+    cell = "lsd-small.compact-three"
+    # the rate's workloads list does not name the cell yet
+    out = run_small(root, seed=3, seconds=1.0, cell=cell)
+    assert out["correct"] and set(out["metrics"]) == {"setup_s"}
+    _admit_rate(root, cell)
+    out = run_small(root, seed=3, seconds=1.0, cell=cell)
+    assert out["correct"], out["checks"]
+    assert set(out["metrics"]) == {"compact_triples_per_s", "setup_s"}
+    out = run_small(root, seed=3, seconds=1.0, traced=True, cell=cell)
     assert out["correct"] and out["metrics"]["ops.compact-three"]["value"] > 0
     assert out["checks"]["ops_checked_missing"]["value"] == 0
     # metrics whose workloads list names another cell stay out
     assert "detect_ms.compact" not in out["metrics"]
+
+
+def _admit_rate(root, cell):
+    """Append ``cell`` to ``compact_triples_per_s``'s workloads list."""
+    b = harness.load_bench(root)
+    rate = next(m for m in b["end_to_end"]
+                if m["name"] == "compact_triples_per_s")
+    rate["workloads"].append(cell)
+    (root / "BENCHMARK.json").write_text(json.dumps(b))
+
+
+# A generator of another schema, kept to the contract of gen/__init__.py:
+# Course (dept, level, room: complete, functional molecules that repeat)
+# and Student (major, year, 1-3 takes: multi-valued, an advisor on one
+# in five: optional).
+TOY_GENERATOR = """\
+import numpy as np
+
+PREDS = ("dept", "level", "room", "major", "year", "takes", "advisor")
+SIZES = {"dept": 5, "level": 3, "room": 4, "major": 6, "year": 4,
+         "prof": 10}
+
+
+def spec_from_config(cfg):
+    return int(cfg["n_courses"]), int(cfg["n_students"])
+
+
+class Vocabulary:
+    def __init__(self, spec):
+        n_courses, n_students = spec
+        terms = ["rdf:type", "repro:instanceOf", "Course", "Student",
+                 *PREDS]
+        self.id = {t: i for i, t in enumerate(terms)}
+        self.start = {}
+        for block, n in (*SIZES.items(), ("course", n_courses),
+                         ("student", n_students)):
+            self.start[block] = len(terms)
+            terms += [f"{block}/{i}" for i in range(n)]
+        self.terms = terms
+
+
+def graph_rows(vocab, spec, rng):
+    n_courses, n_students = spec
+    st, v = vocab.start, vocab.id
+
+    def arm(s, p, o):
+        return np.stack([s, np.full(len(s), v[p]), o], 1)
+
+    c = st["course"] + np.arange(n_courses)
+    s = st["student"] + np.arange(n_students)
+    takes = np.repeat(s, rng.integers(1, 4, n_students))
+    adv = s[rng.random(n_students) < 0.2]
+    parts = [arm(c, "rdf:type", np.full(len(c), v["Course"])),
+             arm(s, "rdf:type", np.full(len(s), v["Student"])),
+             arm(takes, "takes",
+                 st["course"] + rng.integers(0, n_courses, len(takes))),
+             arm(adv, "advisor",
+                 st["prof"] + rng.integers(0, SIZES["prof"], len(adv)))]
+    for ents, props in ((c, ("dept", "level", "room")),
+                        (s, ("major", "year"))):
+        parts += [arm(ents, p, st[p] + rng.integers(0, SIZES[p], len(ents)))
+                  for p in props]
+    return np.concatenate(parts).astype(np.int32)
+"""
+
+
+def test_a_configuration_of_another_schema_added_as_files(root,
+                                                          monkeypatch):
+    here = root / "bench_port"
+    (here / "gen" / "toy.py").write_text(TOY_GENERATOR)
+    (here / "configs" / "toy.json").write_text(json.dumps(
+        {"name": "toy", "generator": "toy", "n_courses": 300,
+         "n_students": 900,
+         "guarantees": {"lossless": "expand(G') equals the input graph"}}))
+    shutil.copy(here / "metrics" / "detect_ms.compact.py",
+                here / "metrics" / "detect_ms.toy.py")
+    b = harness.load_bench(root)
+    b["configs"].append({"name": "toy", "source": "test",
+                         "file": "bench_port/configs/toy.json",
+                         "reduced": [], "why": "test"})
+    b["workloads"].append({"name": "toy.compact", "config": "toy",
+                           "traffic": "compact", "chips": 1, "why": "test"})
+    b["per_layer"].append({"name": "detect_ms.toy", "unit": "ms",
+                           "better": "lower", "source": "host_clock",
+                           "layer": "planner, detectors and sweep",
+                           "moves": "compact_triples_per_s",
+                           "workloads": ["toy.compact"]})
+    (root / "BENCHMARK.json").write_text(json.dumps(b))
+    _admit_rate(root, "toy.compact")
+    out = run_small(root, seed=2**31 + 3, seconds=1.0, cell="toy.compact")
+    assert out["correct"], out["checks"]
+    assert set(out["metrics"]) == {"compact_triples_per_s", "setup_s"}
+    assert out["checks"]["ops_checked_missing"]["value"] == 0
+    out = run_small(root, seed=2**31 + 3, seconds=1.0, traced=True,
+                    cell="toy.compact")
+    # the *.compact metrics name the sensor cell alone: only its own
+    assert out["correct"] and set(out["metrics"]) == {"detect_ms.toy"}
+    _fault_altered(monkeypatch)
+    out = run_small(root, seed=2**31 + 3, seconds=1.0, cell="toy.compact")
+    assert not out["correct"], out["checks"]
 
 
 def _subprocess(code, cwd=ROOT):
