@@ -1,5 +1,5 @@
-"""Closed-loop compaction: whole ``Compactor("gfsp", "device")`` ops back
-to back, each on a fresh store over the raw rows of a graph from a pool
+"""Closed-loop compaction: whole ``Compactor(detector, "device")`` ops
+back to back, each on a fresh store over the raw rows of a graph from a pool
 made in set-up from the seed.
 
 The driver is schema-free: it takes its graphs from the generator the
@@ -8,7 +8,9 @@ contract), so any generator that keeps that contract runs through the
 same op, reference and check.
 
 Mix numbers: ``pool`` (graphs), ``check_ops`` (ops the reference judges,
-drawn from the seed among those the window completed).
+drawn from the seed among those the window completed), and optionally
+``detector`` (``"gfsp"``, the default, or ``"efsp"``: the program's
+detector and the reference's algorithm alike).
 
 ``compact_triples_per_s`` is the input triples of every op the window
 completed over the window's wall time; the window runs whole ops until
@@ -18,6 +20,7 @@ is ``convert.store_from_arrays`` then ``plan`` and ``execute`` (what
 """
 from __future__ import annotations
 
+import functools
 import resource
 import sys
 import time
@@ -28,11 +31,11 @@ from ..ref import fsp
 from ..ref.graph import Graph, rows_diff, sort_unique
 
 
-def _program_op(terms, spo, device, spans):
+def _program_op(terms, spo, device, spans, detector="gfsp"):
     from repro_torch.api import Compactor
     from repro_torch.convert import store_from_arrays
     store = store_from_arrays(terms, spo)
-    comp = Compactor("gfsp", "device", backend_opts={"device": device})
+    comp = Compactor(detector, "device", backend_opts={"device": device})
     with spans("plan"):
         plan = comp.plan(store)
     with spans("execute"):
@@ -45,10 +48,11 @@ def _program_op(terms, spo, device, spans):
     return rows, rep.graph.spo, tables
 
 
-def _reference(terms, spo, sig_bits=64):
-    """(plan rows, G' rows, tables) as the plain reference works them out."""
+def _reference(terms, spo, sig_bits=64, detector="gfsp"):
+    """(plan rows, G' rows, tables) as the plain reference works them out
+    with ``detector``'s algorithm."""
     g = Graph(spo, type_id=0)
-    entries = fsp.plan(g, inst_id=1, sig_bits=sig_bits)
+    entries = fsp.plan(g, inst_id=1, sig_bits=sig_bits, detector=detector)
     gp, tables = fsp.factorize(spo, entries, len(terms), 0, 1, sig_bits)
     rows = [(e.class_id, e.props, e.edges, e.ami, e.evaluations,
              e.iterations, e.predicted_edges, e.baseline_edges)
@@ -57,20 +61,26 @@ def _reference(terms, spo, sig_bits=64):
                       for c, t in tables.items()}
 
 
-def _control_op(terms, spo, device, spans):
+def _control_op(terms, spo, device, spans, detector="gfsp"):
     """The control: the reference with molecules grouped by a 16-bit row
     hash, in the program's place (``ref/fsp.py``)."""
     with spans("plan"):
         pass
     with spans("execute"):
-        return _reference(terms, spo, sig_bits=16)
+        return _reference(terms, spo, sig_bits=16, detector=detector)
+
+
+def mix_detector(run) -> str:
+    """The detector the mix names, ``gfsp`` where it names none."""
+    return str(run.traffic.get("detector", "gfsp"))
 
 
 def setup(run):
     vocab = run.gen.Vocabulary(run.spec)
     pool = [run.gen.graph_rows(vocab, run.spec, run.rng(1, j))
             for j in range(int(run.traffic["pool"]))]
-    op = _control_op if run.control else _program_op
+    op = functools.partial(_control_op if run.control else _program_op,
+                           detector=mix_detector(run))
     op(vocab.terms, pool[0], run.device, run.spans)     # warm every shape
     run.spans.seconds.clear()
     return {"vocab": vocab, "pool": pool, "op": op, "outs": []}
@@ -150,7 +160,7 @@ def check(run, state):
     for i in pick:
         j, (rows, gp, tables) = outs[i]
         if j not in refs:
-            refs[j] = _reference(terms, pool[j])
+            refs[j] = _reference(terms, pool[j], detector=mix_detector(run))
         r_rows, r_gp, r_tables = refs[j]
         plan_d += _plan_diff(rows, r_rows)
         gp_d += rows_diff(sort_unique(gp), r_gp)

@@ -1,15 +1,30 @@
-"""The plain reference of a compaction: G.FSP detection (the paper's
-Algorithm 2 with the Def. 4.8 objective), factorization (Algorithm 3)
-and the expansion back to G, in numpy over id rows.
+"""The plain reference of a compaction: G.FSP and E.FSP detection (the
+paper's Algorithms 2 and 1), factorization (Algorithm 3) and the
+expansion back to G, in numpy over id rows.
 
 Written from the paper (Karim, Vidal & Auer 2020, §4) and the
-semantics ``src/repro_torch/api/detectors.py`` ``GreedyDetector``,
-``api/snapshot.py`` ``CompactionPlanner.plan`` and
-``core/factorize.py`` state in their docstrings; it shares no code with
-them.  Rows group by exact object tuples (``np.unique`` order), and each
-class's surrogates take the next ids of the dictionary, one per tuple in
-that order, class after class in plan order, as the program's
+semantics ``src/repro_torch/api/detectors.py`` ``GreedyDetector`` and
+``ExhaustiveDetector``, ``api/snapshot.py`` ``CompactionPlanner.plan``
+and ``core/factorize.py`` state in their docstrings; it shares no code
+with them.  Rows group by exact object tuples (``np.unique`` order), and
+each class's surrogates take the next ids of the dictionary, one per
+tuple in that order, class after class in plan order, as the program's
 dictionary mints them.
+
+The objective scores a candidate SP on the entities its factorization
+folds: E(SP), the class's entities with exactly one object for every
+property of SP (the rows ``Graph.object_matrix`` gives and
+``factorize`` folds).  AMI is the number of distinct object tuples over
+E(SP), 0 where E(SP) is empty; with n_p the class's (e, p, o) rows,
+
+    #Edges(SP) = AMI * (|SP| + 1) + sum_{p in S} n_p - |E(SP)| * |SP|,
+
+and the baseline is sum_{p in S} n_p, so the predicted savings,
+|E(SP)| * |SP| - AMI * (|SP| + 1), are the rows the class's
+factorization removes.  On a class whose properties are all functional
+and complete (n_p = AM, E(SP) every entity) this is Def. 4.8 term for
+term.  A multi-valued or optional property no longer makes a class
+predict savings it cannot fold.
 
 ``sig_bits=16`` is the compaction cell's control: molecules grouped by
 a 16-bit row hash instead of the tuple itself, a signature too narrow
@@ -22,6 +37,7 @@ configuration's size in three seeds on the chip.)
 from __future__ import annotations
 
 import dataclasses
+import itertools
 
 import numpy as np
 
@@ -73,9 +89,13 @@ def ami(mat: np.ndarray, sig_bits: int = 64) -> int:
     return int(groups(mat, sig_bits)[1].shape[0])
 
 
-def edges(a: int, am: int, n_sp: int, n_s: int) -> int:
-    """#Edges(SP, C, G), Def. 4.8."""
-    return a * (n_sp + 1) + am * (n_s - n_sp)
+def edges(a: int, n_e: int, n_sp: int, total: int) -> int:
+    """#Edges(SP, C, G) scored on the entities the factorization folds:
+    ``a`` molecules of ``n_sp`` arms and a type edge each, plus the
+    class's ``total`` (e, p, o) rows over S less the ``n_e * n_sp`` arms
+    of the ``n_e`` folded entities.  With every property functional and
+    complete (``total = AM * |S|``, ``n_e = AM``) this is Def. 4.8."""
+    return a * (n_sp + 1) + total - n_e * n_sp
 
 
 @dataclasses.dataclass
@@ -90,54 +110,147 @@ class ClassResult:
     baseline_edges: int
 
 
+MAX_EFSP_PROPS = 16
+
+
+class ClassView:
+    """One class over its properties S: each entity's count of objects
+    for every property and its first object (``Graph.object_counts``),
+    read once; every candidate SP is scored from them."""
+
+    def __init__(self, g: Graph, cid: int, props: np.ndarray) -> None:
+        self.props = [int(p) for p in props]
+        _, self.count, self.obj = g.object_counts(cid, self.props)
+        self.am = int(self.count.shape[0])
+        self.total = int(self.count.sum())   # the baseline: n_p over S
+
+    def score(self, cols, sig_bits: int = 64) -> tuple[int, int, int]:
+        """(#Edges, AMI, |E|) of the columns ``cols`` of S, where E are the
+        entities with exactly one object for each of them."""
+        cols = list(cols)
+        ok = (self.count[:, cols] == 1).all(axis=1)
+        n_e = int(ok.sum())
+        a = ami(self.obj[ok][:, cols], sig_bits)
+        return edges(a, n_e, len(cols), self.total), a, n_e
+
+
+def _view(g: Graph, cid: int, inst_id: int) -> ClassView | None:
+    """The class's view over S, or None where it has fewer than two
+    properties or no instances (nothing star-shaped to share)."""
+    s_all = g.class_properties(cid, (inst_id,))
+    if s_all.shape[0] < 2 or g.entities(cid).shape[0] == 0:
+        return None
+    return ClassView(g, cid, s_all)
+
+
+def _result(v: ClassView, cid, cols, score, evaluations, iterations):
+    e, a, _ = score
+    props = tuple(sorted(v.props[i] for i in cols))
+    return ClassResult(cid, props, e, a, evaluations, iterations, e,
+                       v.total)
+
+
 def gfsp(g: Graph, cid: int, inst_id: int, sig_bits: int = 64
          ) -> ClassResult | None:
     """Algorithm 2 on one class: from SP = S, drop the property whose
-    removal gives the fewest #Edges (the first candidate with AMI = 1
-    wins outright, ties go to the first), while that improves; stop at
-    |SP| < 3 or AMI = 1.  None where the class has fewer than two
+    removal gives the fewest #Edges (ties go to the first), while that
+    improves; stop at |SP| < 3.  A candidate with AMI = 1 that folds
+    every entity of the class wins outright, and such a current SP
+    stops the descent.  None where the class has fewer than two
     properties or no instances."""
-    s_all = g.class_properties(cid, (inst_id,))
-    n_s, am = int(s_all.shape[0]), int(g.entities(cid).shape[0])
-    if n_s < 2 or am == 0:
+    v = _view(g, cid, inst_id)
+    if v is None:
         return None
-    _, mat = g.object_matrix(cid, s_all)
-    active = list(range(n_s))
-    cur_ami = ami(mat, sig_bits)
-    cur_edges = edges(cur_ami, am, n_s, n_s)
+    active = list(range(len(v.props)))
+    cur = v.score(active, sig_bits)
     evaluations, iterations = 1, 0
     while True:
         iterations += 1
         k = len(active)
-        if k < 3 or cur_ami == 1:
+        if k < 3 or (cur[1] == 1 and cur[2] == v.am):
             break
-        amis = [ami(mat[:, [c for i, c in enumerate(active) if i != j]],
-                    sig_bits) for j in range(k)]
+        cands = [v.score(active[:j] + active[j + 1:], sig_bits)
+                 for j in range(k)]
         evaluations += k
-        cand = [edges(a, am, k - 1, n_s) for a in amis]
-        ones = [j for j, a in enumerate(amis) if a == 1]
-        j = ones[0] if ones else int(np.argmin(cand))
-        if cand[j] >= cur_edges:
+        ones = [j for j, (_, a, n_e) in enumerate(cands)
+                if a == 1 and n_e == v.am]
+        j = ones[0] if ones else int(np.argmin([c[0] for c in cands]))
+        if cands[j][0] >= cur[0]:
             break
         del active[j]
-        cur_ami, cur_edges = amis[j], cand[j]
-    props = tuple(sorted(int(s_all[i]) for i in active))
-    return ClassResult(cid, props, cur_edges, cur_ami, evaluations,
-                       iterations, cur_edges, am * n_s)
+        cur = cands[j]
+    return _result(v, cid, active, cur, evaluations, iterations)
+
+
+def efsp(g: Graph, cid: int, inst_id: int, sig_bits: int = 64
+         ) -> ClassResult | None:
+    """Algorithm 1 on one class: every SP of |S| down to 2 properties, in
+    ``itertools.combinations`` order over S sorted; the first strict
+    minimum of #Edges wins.  ``iterations`` counts the levels and
+    ``evaluations`` the subsets.  None as for ``gfsp``."""
+    v = _view(g, cid, inst_id)
+    if v is None:
+        return None
+    n_s = len(v.props)
+    if n_s > MAX_EFSP_PROPS:
+        raise ValueError(f"class {cid} has {n_s} properties; the exhaustive "
+                         f"reference scores at most {MAX_EFSP_PROPS} "
+                         f"(2^{n_s} subsets)")
+    best = best_cols = None
+    evaluations = 0
+    for k in range(n_s, 1, -1):
+        for cols in itertools.combinations(range(n_s), k):
+            sc = v.score(cols, sig_bits)
+            evaluations += 1
+            if best is None or sc[0] < best[0]:
+                best, best_cols = sc, cols
+    return _result(v, cid, best_cols, best, evaluations, n_s - 1)
+
+
+DETECTORS = {"gfsp": gfsp, "efsp": efsp}
 
 
 def plan(g: Graph, inst_id: int, sig_bits: int = 64,
-         min_savings: int = 1) -> list[ClassResult]:
-    """Every class detected, those saving at least ``min_savings`` edges
-    kept, ranked by savings (ties in class order)."""
-    out = []
+         min_savings: int = 1, detector: str = "gfsp"
+         ) -> list[ClassResult]:
+    """Every class detected by ``detector`` (``gfsp`` or ``efsp``), those
+    saving at least ``min_savings`` edges kept, ranked by savings (ties
+    in class order).
+
+    Classes factorize in that order, and one that an entity belongs to
+    twice folds it once: an earlier entry moves the entity's arms of its
+    SP to a surrogate, so a later class whose SP shares one of those
+    properties no longer finds it.  A later entry is kept only where it
+    still saves ``min_savings`` on the entities left to it, and then
+    reports the figures of those entities (``ami``, ``edges`` and
+    ``predicted_edges`` over them; ``baseline_edges`` and the search's
+    counts as detected), so every entry's predicted savings are the rows
+    its factorization removes.  Where no two classes share an entity, as
+    in a graph of singly typed entities, every entry stays as detected."""
+    detect = DETECTORS[detector]
+    ranked = []
     for cid in g.classes().tolist():
-        r = gfsp(g, cid, inst_id, sig_bits)
+        r = detect(g, cid, inst_id, sig_bits)
         if r is None or len(r.props) < 2:
             continue
         if r.baseline_edges - r.predicted_edges >= min_savings:
-            out.append(r)
-    out.sort(key=lambda r: -(r.baseline_edges - r.predicted_edges))
+            ranked.append(r)
+    ranked.sort(key=lambda r: -(r.baseline_edges - r.predicted_edges))
+    out, folded = [], []        # each kept entry's folded entities and SP
+    for r in ranked:
+        ents, mat = g.object_matrix(r.class_id, r.props)
+        gone = np.zeros(ents.shape[0], bool)
+        for f_ents, f_props in folded:
+            if f_props & set(r.props):
+                gone |= np.isin(ents, f_ents)
+        ents, mat = ents[~gone], mat[~gone]
+        k, a = len(r.props), ami(mat, sig_bits)
+        e = edges(a, ents.shape[0], k, r.baseline_edges)
+        if r.baseline_edges - e < min_savings:
+            continue
+        out.append(dataclasses.replace(r, edges=e, ami=a,
+                                       predicted_edges=e))
+        folded.append((ents, set(r.props)))
     return out
 
 

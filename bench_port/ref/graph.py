@@ -83,21 +83,31 @@ class Graph:
                 out.append(p)
         return np.asarray(out, np.int64)
 
+    def object_counts(self, class_id: int, props
+                      ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """(entities, counts, objects) of the class's entities over
+        ``props``: ``counts[i, j]`` is how many objects entity ``i`` has
+        for ``props[j]``, and ``objects[i, j]`` the first of them (-1
+        where it has none)."""
+        ents = self.entities(class_id)
+        props = [int(p) for p in props]
+        count = np.zeros((ents.shape[0], len(props)), np.int64)
+        mat = np.full((ents.shape[0], len(props)), -1, np.int64)
+        for j, p in enumerate(props):
+            s, o = self.pred(p)
+            lo = np.searchsorted(s, ents, "left")
+            hi = np.searchsorted(s, ents, "right")
+            count[:, j] = hi - lo
+            has = hi > lo
+            mat[has, j] = o[lo[has]]
+        return ents, count, mat
+
     def object_matrix(self, class_id: int, props) -> tuple[np.ndarray,
                                                            np.ndarray]:
         """(entities, objects) of the class's entities that carry exactly
         one object for every property of ``props`` (the complete,
         functional molecules); ``objects[i, j]`` is the object of
         ``props[j]``."""
-        ents = self.entities(class_id)
-        props = [int(p) for p in props]
-        mat = np.full((ents.shape[0], len(props)), -1, np.int64)
-        ok = np.ones(ents.shape[0], bool)
-        for j, p in enumerate(props):
-            s, o = self.pred(p)
-            lo = np.searchsorted(s, ents, "left")
-            hi = np.searchsorted(s, ents, "right")
-            ok &= (hi - lo) == 1
-            has = hi > lo
-            mat[has, j] = o[lo[has]]
+        ents, count, mat = self.object_counts(class_id, props)
+        ok = (count == 1).all(axis=1)
         return ents[ok], mat[ok]

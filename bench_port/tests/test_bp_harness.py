@@ -124,23 +124,26 @@ def _admit_rate(root, cell):
 
 # A generator of another schema, kept to the contract of gen/__init__.py:
 # Course (dept, level, room: complete, functional molecules that repeat)
-# and Student (major, year, 1-3 takes: multi-valued, an advisor on one
-# in five: optional).
+# and Student (major, year and either a functional college or, where the
+# configuration says "multi_valued", 1-3 takes: multi-valued, and an
+# advisor on one in five: optional).
 TOY_GENERATOR = """\
 import numpy as np
 
-PREDS = ("dept", "level", "room", "major", "year", "takes", "advisor")
+PREDS = ("dept", "level", "room", "major", "year", "college", "takes",
+         "advisor")
 SIZES = {"dept": 5, "level": 3, "room": 4, "major": 6, "year": 4,
-         "prof": 10}
+         "college": 3, "prof": 10}
 
 
 def spec_from_config(cfg):
-    return int(cfg["n_courses"]), int(cfg["n_students"])
+    return (int(cfg["n_courses"]), int(cfg["n_students"]),
+            bool(cfg["multi_valued"]))
 
 
 class Vocabulary:
     def __init__(self, spec):
-        n_courses, n_students = spec
+        n_courses, n_students, _ = spec
         terms = ["rdf:type", "repro:instanceOf", "Course", "Student",
                  *PREDS]
         self.id = {t: i for i, t in enumerate(terms)}
@@ -153,7 +156,7 @@ class Vocabulary:
 
 
 def graph_rows(vocab, spec, rng):
-    n_courses, n_students = spec
+    n_courses, n_students, multi_valued = spec
     st, v = vocab.start, vocab.id
 
     def arm(s, p, o):
@@ -161,29 +164,31 @@ def graph_rows(vocab, spec, rng):
 
     c = st["course"] + np.arange(n_courses)
     s = st["student"] + np.arange(n_students)
-    takes = np.repeat(s, rng.integers(1, 4, n_students))
-    adv = s[rng.random(n_students) < 0.2]
     parts = [arm(c, "rdf:type", np.full(len(c), v["Course"])),
-             arm(s, "rdf:type", np.full(len(s), v["Student"])),
-             arm(takes, "takes",
-                 st["course"] + rng.integers(0, n_courses, len(takes))),
-             arm(adv, "advisor",
-                 st["prof"] + rng.integers(0, SIZES["prof"], len(adv)))]
-    for ents, props in ((c, ("dept", "level", "room")),
-                        (s, ("major", "year"))):
+             arm(s, "rdf:type", np.full(len(s), v["Student"]))]
+    if multi_valued:
+        takes = np.repeat(s, rng.integers(1, 4, n_students))
+        adv = s[rng.random(n_students) < 0.2]
+        parts += [arm(takes, "takes",
+                      st["course"] + rng.integers(0, n_courses, len(takes))),
+                  arm(adv, "advisor",
+                      st["prof"] + rng.integers(0, SIZES["prof"], len(adv)))]
+    student = ("major", "year") + (() if multi_valued else ("college",))
+    for ents, props in ((c, ("dept", "level", "room")), (s, student)):
         parts += [arm(ents, p, st[p] + rng.integers(0, SIZES[p], len(ents)))
                   for p in props]
     return np.concatenate(parts).astype(np.int32)
 """
 
 
-def test_a_configuration_of_another_schema_added_as_files(root,
-                                                          monkeypatch):
+@pytest.mark.parametrize("schema", ["functional", "multi_valued"])
+def test_a_configuration_of_another_schema_added_as_files(root, monkeypatch,
+                                                          schema):
     here = root / "bench_port"
     (here / "gen" / "toy.py").write_text(TOY_GENERATOR)
     (here / "configs" / "toy.json").write_text(json.dumps(
         {"name": "toy", "generator": "toy", "n_courses": 300,
-         "n_students": 900,
+         "n_students": 900, "multi_valued": schema == "multi_valued",
          "guarantees": {"lossless": "expand(G') equals the input graph"}}))
     shutil.copy(here / "metrics" / "detect_ms.compact.py",
                 here / "metrics" / "detect_ms.toy.py")
@@ -200,14 +205,21 @@ def test_a_configuration_of_another_schema_added_as_files(root,
                            "workloads": ["toy.compact"]})
     (root / "BENCHMARK.json").write_text(json.dumps(b))
     _admit_rate(root, "toy.compact")
+    # the program's detectors still score a star on the entities complete
+    # over all of the class's properties, the reference on the entities
+    # the star folds: on a multi-valued or optional property the plans
+    # part, and the harness's own check says so
+    sound = schema == "functional"
     out = run_small(root, seed=2**31 + 3, seconds=1.0, cell="toy.compact")
-    assert out["correct"], out["checks"]
+    assert out["correct"] is sound, out["checks"]
+    assert (out["checks"]["plan_fields_wrong"]["value"] > 0) is not sound
     assert set(out["metrics"]) == {"compact_triples_per_s", "setup_s"}
     assert out["checks"]["ops_checked_missing"]["value"] == 0
     out = run_small(root, seed=2**31 + 3, seconds=1.0, traced=True,
                     cell="toy.compact")
     # the *.compact metrics name the sensor cell alone: only its own
-    assert out["correct"] and set(out["metrics"]) == {"detect_ms.toy"}
+    assert out["correct"] is sound
+    assert set(out["metrics"]) == {"detect_ms.toy"}
     _fault_altered(monkeypatch)
     out = run_small(root, seed=2**31 + 3, seconds=1.0, cell="toy.compact")
     assert not out["correct"], out["checks"]
