@@ -157,6 +157,7 @@ def _factorize_class(store, class_id, props, surrogate_prefix,
     # (one bulk TermDict.ids() allocation, not a per-group id() loop)
     with obs.span("mint") as sp:
         inv, counts, rep = row_groups(objmat)
+        sp.set(key=last_key())
         n_groups = int(counts.shape[0])
         cname = store.dict.term(class_id)
         surrogate_ids = store.dict.ids(

@@ -44,6 +44,15 @@ with each other (``searchsorted``, ``in_sorted``) must come from ONE
 call, so that they share widths.  ``KEY_COUNTS`` counts the keys built
 by kind (``"packed"``/``"void"``) and :func:`last_key` gives the kind
 of this thread's newest one, for the spans around the sorts.
+
+Grouping the rows of an (n, k) object matrix (``star.row_groups``)
+takes a key of its own, built by :func:`group_keys`: each column j
+offset by its own minimum and packed in the bit width of ``max_j -
+min_j``, so that columns of large ids over narrow ranges (a class's
+sampling times and measurements, minted late in the dictionary) still
+fit one int64.  The offsets keep the lexicographic order of the signed
+rows, negative ids included.  ``GROUP_KEY_COUNTS`` counts those keys by
+kind, and :func:`last_key` reads them as it reads the sorts'.
 """
 from __future__ import annotations
 
@@ -62,6 +71,8 @@ _KEY_DTYPE = np.dtype([("a", np.int32), ("b", np.int32), ("c", np.int32)])
 
 # keys built by row_keys, by kind: "packed" (one int64) or "void"
 KEY_COUNTS: collections.Counter = collections.Counter()
+# keys built by group_keys, by kind
+GROUP_KEY_COUNTS: collections.Counter = collections.Counter()
 # ``.kind``: the kind of the newest key built in this thread
 _last = threading.local()
 
@@ -132,6 +143,32 @@ def row_keys(perm, *arrays: np.ndarray) -> tuple[np.ndarray, ...]:
     All arrays of one call share their widths, so their keys compare
     with each other; keys of two calls may not."""
     return _row_keys(perm, arrays)[0]
+
+
+def group_keys(mat: np.ndarray) -> np.ndarray | None:
+    """One non-negative int64 per row of an (n, k) int32 matrix, ordered
+    as the rows are lexicographically: column j less its minimum, in
+    the bit width of its range (see the module docstring).  None where
+    those widths sum past 63 bits; the caller then groups the rows
+    through their structured view."""
+    n = mat.shape[0]
+    lo, widths = [], []
+    for j in range(mat.shape[1]):
+        col = mat[:, j]
+        lo.append(int(col.min()) if n else 0)
+        widths.append(max(1, (int(col.max()) - lo[j]).bit_length()) if n
+                      else 1)
+        if sum(widths) > 63:
+            key, kind = None, "void"
+            break
+    else:
+        key, kind = np.zeros(n, np.int64), "packed"
+        for j, w in enumerate(widths):
+            key <<= w
+            key |= np.subtract(mat[:, j], lo[j], dtype=np.int64)
+    GROUP_KEY_COUNTS[kind] += 1
+    _last.kind = kind
+    return key
 
 
 def sort_rows(rows: np.ndarray, perm=SPO_PERM, unique: bool = False

@@ -29,6 +29,7 @@ import torch
 
 from .. import obs
 from ..kernels import ops as kops
+from .index import _run_starts, group_keys, last_key
 from .triples import TripleStore
 
 # ---------------------------------------------------------------------------
@@ -42,18 +43,45 @@ def row_groups(objmat: np.ndarray) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     Returns ``(group_of_row, group_counts, representative_row_index)``:
     ``group_of_row[i]`` is the group id of row i, ``group_counts[g]`` the
     multiplicity M of group g, ``representative_row_index[g]`` one row index
-    instantiating group g.
+    instantiating group g.  Groups are numbered in the lexicographic order
+    of their int32 rows; the representative is the group's first row.
     """
-    n = objmat.shape[0]
+    return _row_groups(objmat)[:3]
+
+
+def _row_groups(objmat: np.ndarray, with_order: bool = False):
+    """:func:`row_groups`, and with ``with_order`` the row indices in
+    group order, each group's rows in index order (else None).  The rows
+    are keyed by one packed int64 where their column ranges fit
+    (``index.group_keys``), else by a structured (void) view of the row,
+    which NumPy sorts field by field an order of magnitude slower."""
+    arr = np.ascontiguousarray(objmat.astype(np.int32, copy=False))
+    key = group_keys(arr)
+    n = arr.shape[0]
     if n == 0:
         z = np.empty((0,), np.int64)
-        return z, z, z
-    # unique over rows via a contiguous void view (fast lexicographic unique)
-    arr = np.ascontiguousarray(objmat.astype(np.int32, copy=False))
-    void = arr.view([("", arr.dtype)] * arr.shape[1]).ravel()
-    _, rep, inv, counts = np.unique(
-        void, return_index=True, return_inverse=True, return_counts=True)
-    return inv.astype(np.int64), counts.astype(np.int64), rep.astype(np.int64)
+        return z, z, z, z if with_order else None
+    if key is None:
+        void = arr.view([("", arr.dtype)] * arr.shape[1]).ravel()
+        _, rep, inv, counts = np.unique(
+            void, return_index=True, return_inverse=True, return_counts=True)
+        inv = inv.astype(np.int64)
+        order = np.argsort(inv, kind="stable") if with_order else None
+        return inv, counts.astype(np.int64), rep.astype(np.int64), order
+    # an unstable sort, then each group's rows put back in index order by
+    # one sort of (group, row) pairs packed in an int64 (n < 2**31)
+    order = np.argsort(key)
+    first = _run_starts(key[order])
+    starts = np.flatnonzero(first)
+    group = np.cumsum(first) - 1
+    inv = np.empty(n, np.int64)
+    inv[order] = group
+    group <<= 31
+    group |= order
+    group.sort()
+    order = group & (2**31 - 1)
+    return (inv, np.diff(starts, append=n), order[starts],
+            order if with_order else None)
 
 
 def multiplicities(objmat: np.ndarray) -> np.ndarray:
@@ -68,10 +96,7 @@ def ami(objmat: np.ndarray) -> int:
     ``ceil(sum_i 1/M_i)`` equals the number of groups exactly (each group of
     size M contributes M * (1/M) = 1), so we count groups directly.
     """
-    if objmat.shape[0] == 0:
-        return 0
-    _, counts, _ = row_groups(objmat)
-    return int(counts.shape[0])
+    return int(row_groups(objmat)[1].shape[0])
 
 
 def num_edges(ami_value: int, am: int, n_sp: int, n_s: int) -> int:
@@ -126,12 +151,11 @@ def star_groups(store: TripleStore, class_id: int, props: Sequence[int]
     props = np.asarray(list(props), dtype=np.int32)
     with obs.span("star_groups") as sp:
         ents, objmat = store.object_matrix(class_id, props)
-        inv, counts, rep = row_groups(objmat)
-        order = np.argsort(inv, kind="stable")
+        inv, counts, rep, order = _row_groups(objmat, with_order=True)
         boundaries = np.concatenate([[0], np.cumsum(counts)]).astype(
             np.int64)
         sorted_ents = ents[order]
-        sp.set(groups=int(counts.shape[0]))
+        sp.set(groups=int(counts.shape[0]), key=last_key())
         return [(sorted_ents[boundaries[g]:boundaries[g + 1]],
                  objmat[rep[g]]) for g in range(counts.shape[0])]
 

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from .. import obs
+from .index import last_key
 from .star import (StarSweepResult, ami, ami_device_batch, num_edges,
                    num_edges_batch)
 from .triples import TripleStore
@@ -223,8 +224,11 @@ class _WorkspaceBase:
 
     def evaluate_current(self) -> StarSweepResult:
         # exact host arithmetic over the already-extracted parent matrix
-        with obs.span("ami.host", rows=int(self.matrix.shape[0])):
-            a = ami(self.matrix[:, self._active]) if self._active else 0
+        with obs.span("ami.host", rows=int(self.matrix.shape[0])) as sp:
+            a = 0
+            if self._active:
+                a = ami(self.matrix[:, self._active])
+                sp.set(key=last_key())
         return StarSweepResult(
             props=self.props, ami=a, am=self.am, n_total_props=self.n_s,
             edges=num_edges(a, self.am, self.k, self.n_s))

@@ -3,6 +3,8 @@ detector x backend on the figure graphs, a sensor graph and every
 workload shape, carried across with ``convert.store_from_arrays`` --
 the same plan, per-class results, G' bytes and digest -- and the star
 queries on G' giving the same bindings."""
+import collections
+
 import numpy as np
 import pytest
 
@@ -135,22 +137,29 @@ def test_star_queries_match_reference(name):
 
 class _PaddedTerms:
     """A term list with ``n`` filler terms, made on demand, at ids
-    ``[at, at + n)``: the ids of the terms after them grow by ``n``
-    without a list of that length."""
+    ``[at, at + n)``, and ``stride - 1`` after each term past them: the
+    id i >= ``at`` of a term moves to ``at + n + (i - at) * stride``
+    without a list of that length.  Terms added later follow on."""
 
-    def __init__(self, terms, at, n):
+    def __init__(self, terms, at, n, stride=1):
         self._head, self._tail = list(terms[:at]), list(terms[at:])
-        self._at, self._n = at, n
+        self._at, self._n, self._stride = at, n, stride
+        self._spread = len(self._tail)
 
     def __len__(self):
-        return self._at + self._n + len(self._tail)
+        return (self._at + self._n + len(self._tail)
+                + self._spread * (self._stride - 1))
 
     def __getitem__(self, i):
         if i < self._at:
             return self._head[i]
-        if i < self._at + self._n:
+        d = i - self._at - self._n
+        if d < 0:
             return f"pad/{i}"
-        return self._tail[i - self._at - self._n]
+        if d < self._spread * self._stride:
+            q, r = divmod(d, self._stride)
+            return f"pad/{i}" if r else self._tail[q]
+        return self._tail[d - self._spread * (self._stride - 1)]
 
     def extend(self, terms):
         self._tail.extend(terms)
@@ -159,40 +168,84 @@ class _PaddedTerms:
         self._tail.append(term)
 
 
-def _padded_store(term_dict, store, pad):
-    """``store`` with every id past the predicates and classes moved up
-    by ``pad`` (order kept), over a dictionary of the same terms."""
+def _padded_store(term_dict, store, pad, stride=1, schema_too=False):
+    """``store`` with every id past the predicates and classes (with
+    ``schema_too``, past ``rdf:type`` and ``repro:instanceOf``) moved up
+    by ``pad`` and spread ``stride`` apart (order kept), over a
+    dictionary of the same terms."""
     spo = store.spo
-    at = int(max(spo[:, 1].max(), spo[spo[:, 1] == store.TYPE, 2].max())) + 1
+    at = max(store.TYPE, store.INSTANCE_OF) + 1 if schema_too else int(
+        max(spo[:, 1].max(), spo[spo[:, 1] == store.TYPE, 2].max())) + 1
     terms = store.dict._terms
     d = term_dict()
-    d._terms = _PaddedTerms(terms, at, pad)
-    d._index = {t: i if i < at else i + pad for i, t in enumerate(terms)}
-    spo = np.where(spo < at, spo, spo + pad).astype(np.int32)
-    return type(store).from_ids(d, spo), d
+    d._terms = _PaddedTerms(terms, at, pad, stride)
+    d._index = {t: i if i < at else at + pad + (i - at) * stride
+                for i, t in enumerate(terms)}
+    wide = spo.astype(np.int64)
+    spo = np.where(wide < at, wide, at + pad + (wide - at) * stride)
+    assert spo.max() < 2**31
+    return type(store).from_ids(d, spo.astype(np.int32)), d
 
 
-# subject and object ids of 22 bits pack with the predicates' into one
-# int64; of 31 bits they cannot, and every row key is the void view
-@pytest.mark.parametrize("pad,kind", [(2**21, "packed"), (2**30, "void")])
-def test_compaction_with_wide_ids_matches_reference(pad, kind):
+def _compact_padded(pad, stride=1, schema_too=False):
+    """One gfsp/device compaction of a sensor graph under
+    :func:`_padded_store` against the JAX package's, checked for the
+    same plan, G' rows, digest, expansion and minted terms; returns the
+    key kinds the triple sorts and the row groupings built, and the
+    store."""
     spec = dict(n_observations=600, seed=11)
     ref_store, ref_dict = _padded_store(
-        JTermDict, jsyn.generate(jsyn.SensorGraphSpec(**spec)), pad)
+        JTermDict, jsyn.generate(jsyn.SensorGraphSpec(**spec)), pad, stride,
+        schema_too)
     store, tdict = _padded_store(
-        TermDict, tsyn.generate(tsyn.SensorGraphSpec(**spec)), pad)
+        TermDict, tsyn.generate(tsyn.SensorGraphSpec(**spec)), pad, stride,
+        schema_too)
     assert store.spo.tobytes() == ref_store.spo.tobytes()
-    assert int(store.spo[:, 0].max()).bit_length() >= 22
     ref_comp = JCompactor("gfsp", "host")
     ref = ref_comp.run(ref_store)
-    before = dict(index.KEY_COUNTS)
+    sorts = collections.Counter(index.KEY_COUNTS)
+    groups = collections.Counter(index.GROUP_KEY_COUNTS)
     comp = Compactor("gfsp", "device", backend_opts={"device": "cpu"})
     got = comp.run(store)
-    moved = {k for k, v in index.KEY_COUNTS.items() if v > before.get(k, 0)}
-    assert moved == {kind}
     assert _plan_rows(got) == _plan_rows(ref)
     assert got.graph.spo.tobytes() == ref.graph.spo.tobytes()
     assert comp.snapshot.digest() == ref_comp.snapshot.digest()
     assert comp.fgraph.expand().spo.tobytes() == store.spo.tobytes()
     assert len(tdict) == len(ref_dict)
     assert tdict._terms._tail == ref_dict._terms._tail
+    return (set(index.KEY_COUNTS - sorts),
+            set(index.GROUP_KEY_COUNTS - groups), store)
+
+
+# subject and object ids of 22 bits pack with the predicates' into one
+# int64; of 31 bits they cannot, and every row key is the void view
+@pytest.mark.parametrize("pad,kind", [(2**21, "packed"), (2**30, "void")])
+def test_compaction_with_wide_ids_matches_reference(pad, kind):
+    sorts, _, store = _compact_padded(pad)
+    assert int(store.spo[:, 0].max()).bit_length() >= 22
+    assert sorts == {kind}
+
+
+def _largest_class_matrix(store):
+    """The object matrix over all of S of the class with the most
+    properties."""
+    stats = max((store.class_stats(c) for c in store.classes()),
+                key=lambda st: st.properties.shape[0])
+    return store.object_matrix(stats.class_id, stats.properties)[1]
+
+
+# every id past rdf:type and instanceOf moved up by 2**21: the
+# Observation class's five columns take 22 bits each from 0, so they
+# pack only from each column's minimum; spread 2**16 apart, their
+# ranges need more than 63 bits and group by the void view
+@pytest.mark.parametrize("pad,stride,kinds", [
+    (2**21, 1, {"packed"}), (0, 2**16, {"packed", "void"})],
+    ids=["offsets", "void"])
+def test_compaction_groups_object_rows_as_the_reference(pad, stride, kinds):
+    _, groups, store = _compact_padded(pad, stride, schema_too=True)
+    assert groups == kinds
+    mat = _largest_class_matrix(store)
+    from_zero = sum(int(c.max()).bit_length() for c in mat.T)
+    from_min = sum(int(c.max() - c.min()).bit_length() for c in mat.T)
+    assert mat.shape[1] == 5 and mat.min() >= pad and from_zero > 63
+    assert (from_min <= 63) == ("void" not in kinds)
