@@ -31,7 +31,6 @@ import numpy as np
 import torch
 
 from . import obs
-from .core.index import last_key
 from .core.triples import TermDict, TripleStore
 
 
@@ -41,10 +40,8 @@ def store_from_arrays(terms: Sequence[str], spo: np.ndarray) -> TripleStore:
     spo = np.asarray(spo, np.int32).reshape(-1, 3)
     if spo.size and (spo.min() < 0 or spo.max() >= len(terms)):
         raise ValueError("spo holds ids outside the dictionary")
-    with obs.span("store.load", rows=int(spo.shape[0])) as sp:
-        store = TripleStore.from_ids(TermDict.from_terms(terms), spo)
-        sp.set(key=last_key())
-        return store
+    with obs.span("store.load", rows=int(spo.shape[0])):
+        return TripleStore.from_ids(TermDict.from_terms(terms), spo)
 
 
 def _flatten(tree, prefix: str = ""):

@@ -18,7 +18,6 @@ from typing import Sequence
 import numpy as np
 
 from .. import obs
-from .index import last_key
 from .star import row_groups
 from .triples import TripleStore
 
@@ -157,7 +156,6 @@ def _factorize_class(store, class_id, props, surrogate_prefix,
     # (one bulk TermDict.ids() allocation, not a per-group id() loop)
     with obs.span("mint") as sp:
         inv, counts, rep = row_groups(objmat)
-        sp.set(key=last_key())
         n_groups = int(counts.shape[0])
         cname = store.dict.term(class_id)
         surrogate_ids = store.dict.ids(
@@ -172,7 +170,7 @@ def _factorize_class(store, class_id, props, surrogate_prefix,
                                      props_arr, class_id, store.TYPE,
                                      store.INSTANCE_OF)
         gprime = TripleStore.from_ids(store.dict, new_spo)  # dedups
-        sp.set(rows=gprime.n_triples, key=last_key())
+        sp.set(rows=gprime.n_triples)
 
     nle_after, nn_after = _class_nle_nodes(gprime, class_id)
     return FactorizationResult(

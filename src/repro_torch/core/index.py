@@ -29,35 +29,23 @@ nothing mutable with its parent except lazily-filled caches that remain
 valid for both.  ``TripleStore`` builds one lazily and carries it across
 ``copy()`` / ``add_ids`` / ``restrict_subjects``.
 
-Every sort and binary search over triple rows goes through one key,
-built by :func:`row_keys`: each row packed into one non-negative int64,
-``(a << (w_b + w_c)) | (b << w_c) | c`` with the columns in the sort's
-order and ``w_j`` the bit width of column j's largest id.  Widths are
-read from the input, so the key orders rows exactly as the
-lexicographic (a, b, c) order does, and ``np.sort`` of the keys
-followed by unpacking replaces an argsort and a gather.  Where the
-widths sum past 63 bits or an id is negative, the key falls back to a
-structured (void) view of the row: the same order, but NumPy compares
+Every sort, binary search and grouping of integer rows -- (n, 3)
+triples and (n, k) object matrices alike -- goes through one key,
+built by :func:`row_keys`: column j of each row, less that column's
+minimum over all the arrays of the call, packed in the bit width of
+the column's range, the columns in the sort's order.  The offsets keep
+the lexicographic order of the signed rows, so ``np.sort`` of the keys
+followed by unpacking replaces an argsort and a gather, and columns of
+large ids over narrow ranges (a class's sampling times, minted late in
+the dictionary) still fit one int64.  Where the widths sum past 63
+bits, the key falls back to a structured view of the row, its fields
+signed int32 in the same order: the same order, but NumPy compares
 such records field by field through a generic call, an order of
-magnitude slower to sort than one integer.  Keys that are compared
-with each other (``searchsorted``, ``in_sorted``) must come from ONE
-call, so that they share widths.  ``KEY_COUNTS`` counts the keys built
-by kind (``"packed"``/``"void"``) and :func:`last_key` gives the kind
-of this thread's newest one, for the spans around the sorts.
-
-Grouping the rows of an (n, k) object matrix (``star.row_groups``)
-takes a key of its own, built by :func:`group_keys`: each column j
-offset by its own minimum and packed in the bit width of ``max_j -
-min_j``, so that columns of large ids over narrow ranges (a class's
-sampling times and measurements, minted late in the dictionary) still
-fit one int64.  The offsets keep the lexicographic order of the signed
-rows, negative ids included.  ``GROUP_KEY_COUNTS`` counts those keys by
-kind, and :func:`last_key` reads them as it reads the sorts'.
+magnitude slower to sort than one integer.  Keys that are compared with
+each other (``searchsorted``, ``in_sorted``) must come from ONE call,
+so that they share offsets and widths.
 """
 from __future__ import annotations
-
-import collections
-import threading
 
 import numpy as np
 
@@ -67,108 +55,71 @@ from .. import obs
 SPO_PERM = (0, 1, 2)      # TripleStore.spo canonical order
 PSO_PERM = (1, 0, 2)      # GraphIndex row order
 
-_KEY_DTYPE = np.dtype([("a", np.int32), ("b", np.int32), ("c", np.int32)])
 
-# keys built by row_keys, by kind: "packed" (one int64) or "void"
-KEY_COUNTS: collections.Counter = collections.Counter()
-# keys built by group_keys, by kind
-GROUP_KEY_COUNTS: collections.Counter = collections.Counter()
-# ``.kind``: the kind of the newest key built in this thread
-_last = threading.local()
-
-
-def last_key() -> str | None:
-    """The kind (``"packed"``/``"void"``) of the newest row key built in
-    this thread, None before the first: a span around one sort reads the
-    path its sort took."""
-    return getattr(_last, "kind", None)
-
-
-def _key_view(rows: np.ndarray, perm) -> np.ndarray:
-    """Structured (void) view of (n, 3) int32 rows under column order
-    ``perm`` -- lexicographically comparable/searchable as one key."""
-    arr = np.ascontiguousarray(rows[:, list(perm)], dtype=np.int32)
-    return arr.view(_KEY_DTYPE).ravel()
-
-
-def _shifts(perm, arrays) -> tuple[int, int] | None:
-    """``(w_b + w_c, w_c)`` for packing the rows of every array in
-    ``arrays`` under ``perm``, or None where an id is negative or the
-    widths sum past 63 bits."""
+def _spec(cols, arrays) -> tuple[list[int], list[int]] | None:
+    """``(offsets, widths)`` of the columns ``cols``: each one's minimum
+    over the rows of every array in ``arrays``, and the bit width of its
+    range; None where the widths sum past 63 bits."""
     arrays = [a for a in arrays if a.shape[0]]
-    if any(int(a.min()) < 0 for a in arrays):
-        return None
-    widths = [max(1, max((int(a[:, j].max()) for a in arrays),
-                         default=0).bit_length()) for j in perm]
-    if sum(widths) > 63:
-        return None
-    return widths[1] + widths[2], widths[2]
+    lo, widths = [], []
+    for j in cols:
+        low = min((int(a[:, j].min()) for a in arrays), default=0)
+        high = max((int(a[:, j].max()) for a in arrays), default=0)
+        lo.append(low)
+        widths.append(max(1, (high - low).bit_length()))
+        if sum(widths) > 63:
+            return None
+    return lo, widths
 
 
-def _pack(rows: np.ndarray, perm, shifts: tuple[int, int]) -> np.ndarray:
-    hi, lo = shifts
-    key = rows[:, perm[0]].astype(np.int64)
-    key <<= hi - lo
-    key |= rows[:, perm[1]]
-    key <<= lo
-    key |= rows[:, perm[2]]
-    return key
+def _pack(rows: np.ndarray, cols, spec) -> np.ndarray:
+    # unsigned arithmetic wraps modulo 2**64, so the ids go in as they
+    # are and the offsets come off in one subtraction at the end: the
+    # widths keep the true key below 2**63
+    (first, *rest), (offset, *lows), (_, *widths) = cols, *spec
+    key = rows[:, first].astype(np.uint64)
+    for j, low, w in zip(rest, lows, widths):
+        key <<= w
+        np.add(key, rows[:, j], out=key, dtype=np.uint64, casting="unsafe")
+        offset = (offset << w) + low
+    key -= np.uint64(offset % 2**64)
+    return key.view(np.int64)
 
 
-def _unpack(keys: np.ndarray, perm, shifts: tuple[int, int]) -> np.ndarray:
-    hi, lo = shifts
-    rows = np.empty((keys.shape[0], 3), np.int32)
-    rows[:, perm[0]] = keys >> hi
-    rows[:, perm[1]] = (keys >> lo) & ((1 << (hi - lo)) - 1)
-    rows[:, perm[2]] = keys & ((1 << lo) - 1)
+def _unpack(keys: np.ndarray, cols, spec) -> np.ndarray:
+    """The rows whose packed keys are ``keys``, which it overwrites: the
+    columns come off the low end, the last one is what remains."""
+    rows = np.empty((keys.shape[0], len(cols)), np.int32)
+    col = np.empty_like(keys)
+    shifted = keys.view(np.uint64)      # NumPy shifts it in place faster
+    (first, *rest), (first_low, *lows), (_, *widths) = cols, *spec
+    for j, low, w in zip(rest[::-1], lows[::-1], widths[::-1]):
+        np.bitwise_and(keys, (1 << w) - 1, out=col)
+        np.add(col, low, out=rows[:, j], casting="unsafe")
+        shifted >>= w
+    np.add(keys, first_low, out=rows[:, first], casting="unsafe")
     return rows
 
 
-def _row_keys(perm, arrays) -> tuple[tuple[np.ndarray, ...],
-                                     tuple[int, int] | None]:
-    arrays = [np.asarray(a, np.int32).reshape(-1, 3) for a in arrays]
-    shifts = _shifts(perm, arrays)
-    kind = "void" if shifts is None else "packed"
-    KEY_COUNTS[kind] += len(arrays)
-    _last.kind = kind
-    if shifts is None:
-        return tuple(_key_view(a, perm) for a in arrays), None
-    return tuple(_pack(a, perm, shifts) for a in arrays), shifts
+def _row_keys(cols, arrays) -> tuple[tuple[np.ndarray, ...],
+                                     tuple[list[int], list[int]] | None]:
+    cols = list(cols)
+    arrays = [np.asarray(a, np.int32) for a in arrays]
+    spec = _spec(cols, arrays)
+    if spec is None:
+        fields = np.dtype([(f"f{i}", np.int32) for i in range(len(cols))])
+        return tuple(np.ascontiguousarray(a[:, cols]).view(fields).ravel()
+                     for a in arrays), None
+    return tuple(_pack(a, cols, spec) for a in arrays), spec
 
 
-def row_keys(perm, *arrays: np.ndarray) -> tuple[np.ndarray, ...]:
-    """One sort/search key per row of each (n, 3) array, ordered as the
-    rows are under the column order ``perm``: a packed int64 where the
-    columns fit, else the structured view (see the module docstring).
-    All arrays of one call share their widths, so their keys compare
-    with each other; keys of two calls may not."""
-    return _row_keys(perm, arrays)[0]
-
-
-def group_keys(mat: np.ndarray) -> np.ndarray | None:
-    """One non-negative int64 per row of an (n, k) int32 matrix, ordered
-    as the rows are lexicographically: column j less its minimum, in
-    the bit width of its range (see the module docstring).  None where
-    those widths sum past 63 bits; the caller then groups the rows
-    through their structured view."""
-    n = mat.shape[0]
-    lo, widths = [], []
-    for j in range(mat.shape[1]):
-        col = mat[:, j]
-        lo.append(int(col.min()) if n else 0)
-        widths.append(max(1, (int(col.max()) - lo[j]).bit_length()) if n
-                      else 1)
-        if sum(widths) > 63:
-            key, kind = None, "void"
-            break
-    else:
-        key, kind = np.zeros(n, np.int64), "packed"
-        for j, w in enumerate(widths):
-            key <<= w
-            key |= np.subtract(mat[:, j], lo[j], dtype=np.int64)
-    GROUP_KEY_COUNTS[kind] += 1
-    _last.kind = kind
-    return key
+def row_keys(cols, *arrays: np.ndarray) -> tuple[np.ndarray, ...]:
+    """One sort/search key per row of each (n, k) integer array, ordered
+    as the rows are under the column order ``cols``: an int64 where the
+    columns' ranges fit, else the structured view (see the module
+    docstring).  All arrays of one call share offsets and widths, so
+    their keys compare with each other; keys of two calls may not."""
+    return _row_keys(cols, arrays)[0]
 
 
 def sort_rows(rows: np.ndarray, perm=SPO_PERM, unique: bool = False
@@ -179,12 +130,12 @@ def sort_rows(rows: np.ndarray, perm=SPO_PERM, unique: bool = False
     rows = np.ascontiguousarray(rows, dtype=np.int32).reshape(-1, 3)
     if rows.shape[0] <= 1:
         return rows
-    (key,), shifts = _row_keys(perm, (rows,))
-    if shifts is None:
+    (key,), spec = _row_keys(perm, (rows,))
+    if spec is None:
         rows = rows[np.argsort(key, kind="stable")]
         return rows[_run_starts(rows)] if unique else rows
     key = np.sort(key)
-    return _unpack(key[_run_starts(key)] if unique else key, perm, shifts)
+    return _unpack(key[_run_starts(key)] if unique else key, perm, spec)
 
 
 def _run_starts(ordered: np.ndarray) -> np.ndarray:

@@ -29,7 +29,7 @@ import torch
 
 from .. import obs
 from ..kernels import ops as kops
-from .index import _run_starts, group_keys, last_key
+from .index import _run_starts, row_keys
 from .triples import TripleStore
 
 # ---------------------------------------------------------------------------
@@ -52,22 +52,13 @@ def row_groups(objmat: np.ndarray) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
 def _row_groups(objmat: np.ndarray, with_order: bool = False):
     """:func:`row_groups`, and with ``with_order`` the row indices in
     group order, each group's rows in index order (else None).  The rows
-    are keyed by one packed int64 where their column ranges fit
-    (``index.group_keys``), else by a structured (void) view of the row,
-    which NumPy sorts field by field an order of magnitude slower."""
-    arr = np.ascontiguousarray(objmat.astype(np.int32, copy=False))
-    key = group_keys(arr)
-    n = arr.shape[0]
+    are keyed by ``index.row_keys``: one int64 where their column ranges
+    fit, else a structured view of the row."""
+    n = objmat.shape[0]
     if n == 0:
         z = np.empty((0,), np.int64)
         return z, z, z, z if with_order else None
-    if key is None:
-        void = arr.view([("", arr.dtype)] * arr.shape[1]).ravel()
-        _, rep, inv, counts = np.unique(
-            void, return_index=True, return_inverse=True, return_counts=True)
-        inv = inv.astype(np.int64)
-        order = np.argsort(inv, kind="stable") if with_order else None
-        return inv, counts.astype(np.int64), rep.astype(np.int64), order
+    (key,) = row_keys(range(objmat.shape[1]), objmat)
     # an unstable sort, then each group's rows put back in index order by
     # one sort of (group, row) pairs packed in an int64 (n < 2**31)
     order = np.argsort(key)
@@ -155,7 +146,7 @@ def star_groups(store: TripleStore, class_id: int, props: Sequence[int]
         boundaries = np.concatenate([[0], np.cumsum(counts)]).astype(
             np.int64)
         sorted_ents = ents[order]
-        sp.set(groups=int(counts.shape[0]), key=last_key())
+        sp.set(groups=int(counts.shape[0]))
         return [(sorted_ents[boundaries[g]:boundaries[g + 1]],
                  objmat[rep[g]]) for g in range(counts.shape[0])]
 

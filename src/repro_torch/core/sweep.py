@@ -34,7 +34,6 @@ import numpy as np
 import torch
 
 from .. import obs
-from .index import last_key
 from .star import (StarSweepResult, ami, ami_device_batch, num_edges,
                    num_edges_batch)
 from .triples import TripleStore
@@ -224,11 +223,10 @@ class _WorkspaceBase:
 
     def evaluate_current(self) -> StarSweepResult:
         # exact host arithmetic over the already-extracted parent matrix
-        with obs.span("ami.host", rows=int(self.matrix.shape[0])) as sp:
+        with obs.span("ami.host", rows=int(self.matrix.shape[0])):
             a = 0
             if self._active:
                 a = ami(self.matrix[:, self._active])
-                sp.set(key=last_key())
         return StarSweepResult(
             props=self.props, ami=a, am=self.am, n_total_props=self.n_s,
             edges=num_edges(a, self.am, self.k, self.n_s))

@@ -26,8 +26,8 @@ from typing import Iterable, Sequence
 import numpy as np
 
 from .. import obs
-from .index import (GraphIndex, SPO_PERM, in_sorted, last_key,
-                    merge_disjoint, setdiff_rows, sort_unique)
+from .index import (GraphIndex, SPO_PERM, in_sorted, merge_disjoint,
+                    setdiff_rows, sort_unique)
 
 RDF_TYPE = "rdf:type"
 INSTANCE_OF = "repro:instanceOf"
@@ -174,10 +174,9 @@ class TripleStore:
     def index(self) -> GraphIndex:
         """The lazily-built per-predicate CSR index over ``spo``."""
         if self._index is None:
-            with obs.span("index.build", rows=self.n_triples) as sp:
+            with obs.span("index.build", rows=self.n_triples):
                 self._index = GraphIndex(self._spo, self.TYPE,
                                          self.INSTANCE_OF)
-                sp.set(key=last_key())
         return self._index
 
     # -- construction ------------------------------------------------------

@@ -3,7 +3,6 @@ detector x backend on the figure graphs, a sensor graph and every
 workload shape, carried across with ``convert.store_from_arrays`` --
 the same plan, per-class results, G' bytes and digest -- and the star
 queries on G' giving the same bindings."""
-import collections
 
 import numpy as np
 import pytest
@@ -191,7 +190,6 @@ def _compact_padded(pad, stride=1, schema_too=False):
     """One gfsp/device compaction of a sensor graph under
     :func:`_padded_store` against the JAX package's, checked for the
     same plan, G' rows, digest, expansion and minted terms; returns the
-    key kinds the triple sorts and the row groupings built, and the
     store."""
     spec = dict(n_observations=600, seed=11)
     ref_store, ref_dict = _padded_store(
@@ -203,8 +201,6 @@ def _compact_padded(pad, stride=1, schema_too=False):
     assert store.spo.tobytes() == ref_store.spo.tobytes()
     ref_comp = JCompactor("gfsp", "host")
     ref = ref_comp.run(ref_store)
-    sorts = collections.Counter(index.KEY_COUNTS)
-    groups = collections.Counter(index.GROUP_KEY_COUNTS)
     comp = Compactor("gfsp", "device", backend_opts={"device": "cpu"})
     got = comp.run(store)
     assert _plan_rows(got) == _plan_rows(ref)
@@ -213,17 +209,26 @@ def _compact_padded(pad, stride=1, schema_too=False):
     assert comp.fgraph.expand().spo.tobytes() == store.spo.tobytes()
     assert len(tdict) == len(ref_dict)
     assert tdict._terms._tail == ref_dict._terms._tail
-    return (set(index.KEY_COUNTS - sorts),
-            set(index.GROUP_KEY_COUNTS - groups), store)
+    return store
+
+
+def _key_kind(cols, rows):
+    """The kind of key ``index.row_keys`` builds over ``rows``: one
+    int64 per row, or the structured view of the row."""
+    (key,) = index.row_keys(cols, rows)
+    return "packed" if key.dtype == np.int64 else "void"
 
 
 # subject and object ids of 22 bits pack with the predicates' into one
-# int64; of 31 bits they cannot, and every row key is the void view
+# int64; of 31 bits they cannot, as the subjects and objects also hold
+# the schema's small ids, so both columns' ranges take 31 bits and every
+# triple key is the structured view
 @pytest.mark.parametrize("pad,kind", [(2**21, "packed"), (2**30, "void")])
 def test_compaction_with_wide_ids_matches_reference(pad, kind):
-    sorts, _, store = _compact_padded(pad)
+    store = _compact_padded(pad)
     assert int(store.spo[:, 0].max()).bit_length() >= 22
-    assert sorts == {kind}
+    assert {_key_kind(perm, store.spo)
+            for perm in (index.SPO_PERM, index.PSO_PERM)} == {kind}
 
 
 def _largest_class_matrix(store):
@@ -237,14 +242,16 @@ def _largest_class_matrix(store):
 # every id past rdf:type and instanceOf moved up by 2**21: the
 # Observation class's five columns take 22 bits each from 0, so they
 # pack only from each column's minimum; spread 2**16 apart, their
-# ranges need more than 63 bits and group by the void view
+# ranges need more than 63 bits, and the compaction runs on the
+# structured view
 @pytest.mark.parametrize("pad,stride,kinds", [
-    (2**21, 1, {"packed"}), (0, 2**16, {"packed", "void"})],
+    (2**21, 1, {"packed"}), (0, 2**16, {"void"})],
     ids=["offsets", "void"])
 def test_compaction_groups_object_rows_as_the_reference(pad, stride, kinds):
-    _, groups, store = _compact_padded(pad, stride, schema_too=True)
-    assert groups == kinds
+    store = _compact_padded(pad, stride, schema_too=True)
     mat = _largest_class_matrix(store)
+    assert {_key_kind(index.SPO_PERM, store.spo),
+            _key_kind(range(mat.shape[1]), mat)} == kinds
     from_zero = sum(int(c.max()).bit_length() for c in mat.T)
     from_min = sum(int(c.max() - c.min()).bit_length() for c in mat.T)
     assert mat.shape[1] == 5 and mat.min() >= pad and from_zero > 63

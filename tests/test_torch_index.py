@@ -2,13 +2,13 @@
 ``core.index``: ``sort_unique``, ``setdiff_rows``, ``merge_disjoint``,
 ``in_sorted`` over row keys, ``GraphIndex``'s rows, predicates and CSR
 starts, and ``fgraph._keep_mask``, on seeded random rows whose column
-widths take the packed int64 key (small ids, widths summing to exactly
-63), the structured fallback (64 bits or more, ids up to 2**31 - 1,
-negative ids), empty and one-row arrays, and pairs whose maxima differ by
-many bits -- keys of one pair share widths, so they must be built in one
-call.  Each case checks which key ``KEY_COUNTS`` saw being built."""
-import collections
-
+ranges take the packed int64 key (small ids, widths summing to exactly
+63, negative ids, large ids over narrow ranges), the structured fallback
+(64 bits or more, ids up to 2**31 - 1), empty and one-row arrays, and
+pairs whose maxima differ by many bits -- keys of one pair share offsets
+and widths, so they must be built in one call.  Each case checks the
+kind of key ``row_keys`` builds for the arrays each function keys: an
+int64, or a structured view."""
 import numpy as np
 import pytest
 
@@ -28,6 +28,9 @@ CASES = {
     "sum64": ((I32, 3, I32), (I32, 2, 2**30), 0, 400, 300),
     "int32-max": ((I32, I32, I32), (I32, I32, I32), 0, 400, 300),
     "negative": ((50, 9, 50), (40, 9, 60), -50, 400, 300),
+    # ids of 31 bits over ranges of 11: packed from each column's minimum
+    "high-narrow": ((2**30 + 2**10,) * 3, (2**30 + 2**10,) * 3, 2**30,
+                    400, 300),
     "empty": ((900, 15, 900), (900, 15, 900), 0, 0, 300),
     "one-row": ((900, 15, 900), (900, 15, 900), 0, 1, 1),
     # the hazard: maxima many bits apart, but the pair still packs
@@ -38,7 +41,8 @@ CASES = {
 # the key each pair of a case must take
 PAIR_KIND = {"small": "packed", "sum63": "packed",
              "sum63-wide-ends": "packed", "sum64": "void",
-             "int32-max": "void", "negative": "void", "empty": "packed",
+             "int32-max": "void", "negative": "packed",
+             "high-narrow": "packed", "empty": "packed",
              "one-row": "packed", "far-maxima": "packed",
              "far-maxima-sum64": "void"}
 PERMS = {"spo": (0, 1, 2), "pso": (1, 0, 2)}
@@ -73,13 +77,28 @@ def _pair(name, seed):
 
 def _kind(*arrays):
     """The key a call over ``arrays`` must build, worked out apart from
-    the port: packed iff no id is negative and the column widths fit."""
+    the port: packed iff the bit widths of the columns' ranges fit."""
     arrays = [x for x in arrays if x.shape[0]]
-    if any(x.min() < 0 for x in arrays):
-        return "void"
-    bits = sum(max(1, max((int(x[:, j].max()) for x in arrays),
-                          default=0).bit_length()) for j in range(3))
+    bits = sum(max(1, (max((int(x[:, j].max()) for x in arrays), default=0)
+                       - min((int(x[:, j].min()) for x in arrays),
+                             default=0)).bit_length()) for j in range(3))
     return "packed" if bits <= 63 else "void"
+
+
+def _built(perm, *arrays):
+    """The kind of key the port's ``row_keys`` builds over ``arrays``:
+    one int64 per row, or the structured view of the row."""
+    kinds = set()
+    for key in tidx.row_keys(perm, *arrays):
+        if key.dtype == np.int64:
+            kinds.add("packed")
+        else:
+            assert key.dtype.names and len(key.dtype.names) == 3
+            assert {f[0] for f in key.dtype.fields.values()} \
+                == {np.dtype(np.int32)}
+            kinds.add("void")
+    assert len(kinds) == 1
+    return kinds.pop()
 
 
 def _same(got, want):
@@ -96,27 +115,26 @@ def test_row_sorts_and_searches_match_reference(name, perm, func):
     assert _kind(a, b) == PAIR_KIND[name]
     # sorted-unique under perm, as the row functions expect
     sa, sb = jidx.sort_unique(a, perm), jidx.sort_unique(b, perm)
-    builds = _kind(a, b)
-    before = collections.Counter(tidx.KEY_COUNTS)
+    assert _built(perm, a, b) == PAIR_KIND[name]
+    # the arrays of each row_keys call the function makes
     if func == "sort_unique":
         for rows in (a, b):
             _same(tidx.sort_unique(rows, perm), jidx.sort_unique(rows, perm))
-        builds = {_kind(x) for x in (a, b) if x.shape[0] > 1}
+        keyed = [(x,) for x in (a, b) if x.shape[0] > 1]
     elif func == "setdiff_rows":
         _same(tidx.setdiff_rows(sa, sb, perm),
               jidx.setdiff_rows(sa, sb, perm))
-        builds = {builds} if sa.shape[0] and sb.shape[0] else set()
+        keyed = [(sa, sb)] if sa.shape[0] and sb.shape[0] else []
     elif func == "merge_disjoint":
         fresh = jidx.setdiff_rows(sb, sa, perm)
         _same(tidx.merge_disjoint(sa, fresh, perm),
               jidx.merge_disjoint(sa, fresh, perm))
-        builds = {_kind(sa, fresh)} if sa.shape[0] and fresh.shape[0] \
-            else set()
+        keyed = [(sa, fresh)] if sa.shape[0] and fresh.shape[0] else []
     elif func == "in_sorted":
         _same(tidx.in_sorted(*tidx.row_keys(perm, a, sb)),
               jidx.in_sorted(jidx._key_view(a, perm),
                              jidx._key_view(sb, perm)))
-        builds = {builds}
+        keyed = [(a, sb)]
     elif func == "graph_index":
         for rows in (a, b):
             spo = jidx.sort_unique(rows)
@@ -125,7 +143,7 @@ def test_row_sorts_and_searches_match_reference(name, perm, func):
             _same(got.rows, want.rows)
             np.testing.assert_array_equal(got.preds, want.preds)
             np.testing.assert_array_equal(got.starts, want.starts)
-        builds = {_kind(x) for x in (a, b) if x.shape[0] > 1}
+        keyed = [(x,) for x in (a, b) if x.shape[0] > 1]
     else:
         # the delete path's mask: rows of the store (sorted-unique under
         # perm) that are not among the dropped rows
@@ -135,13 +153,11 @@ def test_row_sorts_and_searches_match_reference(name, perm, func):
             jidx._key_view(jidx.sort_unique(a, perm), perm)) \
             if sb.shape[0] else np.ones(0, bool)
         _same(got, want)
-        builds = {_kind(sb, sa)} if sb.shape[0] else set()
+        keyed = [(sb, sa)] if sb.shape[0] else []
         if sb.shape[0] and a.shape[0] > 1:
-            builds.add(_kind(a))
-    moved = tidx.KEY_COUNTS - before
-    assert set(moved) == builds
-    if func == "in_sorted":
-        assert tidx.last_key() == PAIR_KIND[name]
+            keyed.append((a,))
+    for arrays in keyed:
+        assert _built(perm, *arrays) == _kind(*arrays)
 
 
 def test_a_packed_key_orders_as_the_rows_do():

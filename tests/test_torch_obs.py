@@ -153,17 +153,6 @@ def test_the_span_tree_of_a_compaction(graph, backend):
     assert fg.attrs["molecules"] == sum(mints)
 
 
-@pytest.mark.parametrize("name", ["store.load", "index.build", "rewrite",
-                                  "ami.host", "star_groups", "mint"])
-def test_the_sort_spans_name_the_row_key_they_sorted_by(graph, name):
-    """A small sensor graph's ids fit one int64 per row: every sort or
-    row grouping behind these spans takes the packed key, and says so."""
-    obs.enable()
-    _compact(graph)
-    keys = [r.attrs["key"] for r in obs.records() if r.name == name]
-    assert keys and set(keys) == {"packed"}
-
-
 def _annotation_offsets(graph):
     """One compaction under a CPU profiler with the recorder left off:
     (span, its annotation's start and end less the span's own) for every
