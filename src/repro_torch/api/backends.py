@@ -6,10 +6,11 @@ A backend owns the execution substrate behind two methods:
 
 * ``evaluate(store, class_id, props, n_s, am)`` -- one candidate subset
   (Def. 4.8 objective), exact host arithmetic.
-* ``workspace(store, class_id, props, n_s, am)`` -- a per-(class, descent)
-  :class:`repro_torch.core.sweep.SweepWorkspace`: the object matrix is
-  extracted ONCE, the device backend uploads it ONCE, and every candidate
-  batch is served from that parent buffer.
+* ``workspace(store, class_id, props, n_s, am, objective)`` -- a
+  per-(class, descent) :class:`repro_torch.core.sweep.SweepWorkspace`
+  scoring ``objective`` (``core.sweep.OBJECTIVES``): the object matrix
+  is extracted ONCE, the device backend uploads it ONCE, and every
+  candidate batch is served from that parent buffer.
 
 ==========  =================================================================
 ``host``    the paper's sequential numpy loop (reference semantics)
@@ -45,7 +46,8 @@ class ExecutionBackend(Protocol):
         ...
 
     def workspace(self, store: TripleStore, class_id: int,
-                  props: Sequence[int], n_s: int, am: int) -> SweepWorkspace:
+                  props: Sequence[int], n_s: int, am: int,
+                  objective: str = "folded") -> SweepWorkspace:
         ...
 
 
@@ -57,8 +59,10 @@ class HostBackend:
     def evaluate(self, store, class_id, props, n_s, am):
         return evaluate_subset(store, class_id, props, n_s, am)
 
-    def workspace(self, store, class_id, props, n_s, am):
-        return HostSweepWorkspace(store, class_id, props, n_s, am)
+    def workspace(self, store, class_id, props, n_s, am,
+                  objective="folded"):
+        return HostSweepWorkspace(store, class_id, props, n_s, am,
+                                  objective)
 
 
 class DeviceBackend:
@@ -75,9 +79,10 @@ class DeviceBackend:
         # single-subset evaluation is cheaper (and exact) on host
         return evaluate_subset(store, class_id, props, n_s, am)
 
-    def workspace(self, store, class_id, props, n_s, am):
+    def workspace(self, store, class_id, props, n_s, am,
+                  objective="folded"):
         return DeviceSweepWorkspace(store, class_id, props, n_s, am,
-                                    device=self.device)
+                                    objective, device=self.device)
 
 
 class ShardedBackend:
@@ -116,10 +121,11 @@ class ShardedBackend:
     def evaluate(self, store, class_id, props, n_s, am):
         return evaluate_subset(store, class_id, props, n_s, am)
 
-    def workspace(self, store, class_id, props, n_s, am):
+    def workspace(self, store, class_id, props, n_s, am,
+                  objective="folded"):
         return ShardedSweepWorkspace(store, class_id, props, n_s, am,
-                                     mesh=self.mesh, plan=self.plan,
-                                     device=self.device)
+                                     objective, mesh=self.mesh,
+                                     plan=self.plan, device=self.device)
 
 
 BACKENDS = Registry("execution backend")

@@ -21,6 +21,14 @@ materialized star patterns):
 The gSpan-counted paths consume pre-counted pattern multiplicities on the
 host, so their results are backend-independent; they accept the backend
 argument to keep ``Compactor`` wiring uniform.
+
+``gfsp`` and ``efsp`` take ``objective`` (``core.sweep.OBJECTIVES``):
+``"folded"``, the default, scores SP on the entities its factorization
+folds (``core.star.folded_edges``: AMI over E(SP), baseline Σ n_p), so a
+multi-valued or optional property never makes a class predict savings
+it cannot fold; ``"complete"`` scores Def. 4.8 on the entities complete
+over S, as the JAX package does.  The two agree wherever every property
+of the class is functional and complete.
 """
 from __future__ import annotations
 
@@ -33,7 +41,7 @@ import numpy as np
 from ..core.efsp import build_subgraphs_dict
 from ..core.gfsp import FSPResult
 from ..core.star import StarSweepResult, num_edges, star_groups
-from ..core.sweep import MAX_SWEEP_CANDIDATES, pick_child
+from ..core.sweep import MAX_SWEEP_CANDIDATES, check_objective, pick_child
 from ..core.triples import TripleStore
 from ..registry import Registry
 from .backends import ExecutionBackend, HostBackend, get_backend  # noqa: F401
@@ -60,12 +68,17 @@ def _class_setup(store: TripleStore, class_id: int,
 
 
 def _result(store, class_id, best: StarSweepResult, am: int,
-            iterations: int, evaluations: int, t0: float) -> FSPResult:
+            iterations: int, evaluations: int, t0: float,
+            ws=None) -> FSPResult:
+    """The detection of ``best``; ``ws``, the workspace that scored it,
+    gives the folded objective's baseline."""
     fsp = star_groups(store, class_id, best.props) if best.props else []
+    folded = ws is not None and ws.objective == "folded"
     return FSPResult(
         class_id=class_id, props=best.props, edges=best.edges,
         ami=best.ami, am=am, iterations=iterations, evaluations=evaluations,
-        exec_time_ms=(time.perf_counter() - t0) * 1e3, fsp=fsp)
+        exec_time_ms=(time.perf_counter() - t0) * 1e3, fsp=fsp,
+        baseline_edges=ws.total if folded else None)
 
 
 class GreedyDetector:
@@ -77,7 +90,8 @@ class GreedyDetector:
     ``#Edges(SP', C, G)``.  The descent stops when no subset improves on
     the current ``#Edges`` (Theorem 4.1), when ``AMI == 1`` (a single
     star pattern), or when ``|SP| < 2``.  Ties break by first candidate
-    (assumption (c) of §4.3).
+    (assumption (c) of §4.3).  Under the folded objective the AMI = 1
+    pick and stop hold only for a pattern that folds every entity.
 
     The whole descent runs against ONE ``backend.workspace``.  Evaluation
     accounting is backend-invariant: 1 for the initial subset, then
@@ -86,6 +100,9 @@ class GreedyDetector:
     """
 
     name = "gfsp"
+
+    def __init__(self, objective: str = "folded") -> None:
+        self.objective = check_objective(objective)
 
     def detect(self, store, class_id, *, backend=None, props=None):
         backend = backend if backend is not None else HostBackend()
@@ -98,35 +115,39 @@ class GreedyDetector:
             return _result(store, class_id, empty, am, iterations,
                            evaluations, t0)
         ws = backend.workspace(store, class_id,
-                               tuple(int(p) for p in s_all), n_s, am)
+                               tuple(int(p) for p in s_all), n_s, am,
+                               self.objective)
         current = ws.evaluate_current()
+        n_e = int(ws.scored_entities(ws.active_mask())[0])
         evaluations += 1
         while True:
             iterations += 1
             k = len(current.props)
             # stop: children would be sub-star (|SP'| < 2) or one pattern
-            if k < 3 or current.is_single_pattern:
+            # that folds every entity
+            if k < 3 or (current.is_single_pattern and n_e == am):
                 break
             edges, amis = ws.sweep()
             evaluations += k
-            best_child, j = pick_child(current, edges, amis, n_s, am)
+            kept = ws.scored_entities(ws.drop_one_masks())
+            best_child, j = pick_child(current, edges, amis, n_s, am, kept)
             if best_child.edges >= current.edges:
                 break          # Theorem 4.1 prunes everything deeper
             ws.descend(j)
-            current = best_child
+            current, n_e = best_child, int(kept[j])
         return _result(store, class_id, current, am, iterations,
-                       evaluations, t0)
+                       evaluations, t0, ws)
 
 
 class ExhaustiveDetector:
     """E.FSP -- Algorithm 1: exhaustive frequent-star-pattern detection.
 
     Breadth-first scans ALL property subsets of cardinality ``|S| .. 2``,
-    keeping the subset that minimizes the Def. 4.8 edge objective.  Each
-    lattice level is packed into one column-mask stack and evaluated as a
-    single candidate batch through ``SweepWorkspace.sweep_candidates``.
-    The entity universe is the workspace's (entities complete over S),
-    shared with G.FSP, so efsp <-> gfsp parity is exact by construction.
+    keeping the subset that minimizes the edge objective (``objective``,
+    as for G.FSP).  Each lattice level is packed into one column-mask
+    stack and evaluated as a single candidate batch through
+    ``SweepWorkspace.sweep_candidates``.  The workspace and its scoring
+    are G.FSP's, so efsp <-> gfsp parity is exact by construction.
 
     Passing a pre-built ``subgraphs_dict`` (property subset ->
     ``[(object_tuple, support), ...]``), or ``min_support > 1``, runs the
@@ -136,10 +157,12 @@ class ExhaustiveDetector:
 
     name = "efsp"
 
-    def __init__(self, min_support: int = 1) -> None:
+    def __init__(self, min_support: int = 1,
+                 objective: str = "folded") -> None:
         # only consulted by the legacy gSpan-counted path (the mining
         # threshold); the lattice engine evaluates every subset exactly
         self.min_support = min_support
+        self.objective = check_objective(objective)
 
     def detect(self, store, class_id, *, backend=None, props=None,
                subgraphs_dict=None):
@@ -158,7 +181,8 @@ class ExhaustiveDetector:
         ws = None
         if n_s >= 2:
             ws = backend.workspace(store, class_id,
-                                   tuple(int(p) for p in s_all), n_s, am)
+                                   tuple(int(p) for p in s_all), n_s, am,
+                                   self.objective)
         s_list = [int(p) for p in s_all]
         for subset_card in range(n_s, 1, -1):
             iterations += 1
@@ -189,7 +213,7 @@ class ExhaustiveDetector:
             best = StarSweepResult(props=(), ami=0, am=am,
                                    n_total_props=n_s, edges=0)
         return _result(store, class_id, best, am, iterations,
-                       evaluations, t0)
+                       evaluations, t0, ws)
 
     def _detect_from_patterns(self, store, class_id, s_all, n_s, am,
                               subgraphs_dict, t0):

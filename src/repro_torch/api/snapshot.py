@@ -8,10 +8,11 @@
   reference, so a reader holding the old snapshot keeps a consistent
   world view for as long as it wants.
 * :class:`CompactionPlanner` -- the compaction brain: ``plan`` ranks
-  classes by predicted Def. 4.8 savings through the configured detector
-  and backend, ``execute`` factorizes a plan (Algorithm 3) into a fresh
-  snapshot, ``run`` does both; ``apply_update``/``apply_delete`` absorb
-  edits as build-new-snapshot transforms, and ``redetect`` re-detects
+  classes by predicted savings through the configured detector and
+  backend, folding an entity typed twice once, ``execute`` factorizes
+  a plan (Algorithm 3) into a fresh snapshot, ``run`` does both;
+  ``apply_update``/``apply_delete`` absorb edits as build-new-snapshot
+  transforms, and ``redetect`` re-detects
   and re-factorizes only the drifted classes (their sweeps run on the
   configured backend: the hand kernels on ``device``), while every
   clean class's molecule table and surrogate triples pass through.
@@ -36,7 +37,7 @@ from ..core.factorize import (FactorizationResult, apply_molecule_map,
 from ..core.fgraph import DeleteStats, FactorizedGraph, MoleculeTable
 from ..core.gfsp import FSPResult
 from ..core.index import GraphIndex, in_sorted
-from ..core.star import row_groups
+from ..core.star import folded_edges, row_groups
 from ..core.triples import TripleStore
 from .backends import ExecutionBackend, get_backend
 from .detectors import Detector, get_detector
@@ -56,8 +57,10 @@ class ClassPlan:
 
     class_id: int
     props: tuple[int, ...]
-    predicted_edges: int | None = None   # #Edges(SP, C, G) -- Def. 4.8
-    baseline_edges: int | None = None    # #Edges(emptyset) = AM_G(C) * |S|
+    predicted_edges: int | None = None   # #Edges(SP, C, G)
+    # #Edges(emptyset): the class's rows over S, Σ n_p (AM * |S| under
+    # Def. 4.8)
+    baseline_edges: int | None = None
     detection: FSPResult | None = None
 
     @property
@@ -395,16 +398,93 @@ class CompactionPlanner:
                 if release is not None:
                     release()
                 continue
+            baseline = res.baseline_edges
             entry = ClassPlan(class_id=cid, props=tuple(sorted(res.props)),
                               predicted_edges=res.edges,
-                              baseline_edges=am * n_s, detection=res)
+                              baseline_edges=am * n_s if baseline is None
+                              else baseline, detection=res)
             if entry.predicted_savings >= self.min_predicted_savings:
                 entries.append(entry)
             if release is not None:
                 release()
         entries.sort(key=lambda e: -e.predicted_savings)
-        return CompactionPlan(entries=entries, detector=self.detector.name,
+        return CompactionPlan(entries=self._fold_once(store, entries),
+                              detector=self.detector.name,
                               backend=self.backend.name)
+
+    def _fold_once(self, store: TripleStore, entries: list[ClassPlan]
+                   ) -> list[ClassPlan]:
+        """The ranked entries as they factorize, one after the other: an
+        entity typed twice is folded once.  An earlier entry moves its
+        folded entities' arms of its SP to surrogates, so a later entry
+        whose SP shares one of those properties no longer finds them.
+        Such an entry is rescored on the entities left to it (AMI,
+        #Edges and the predictions, in the plan and its detection; the
+        baseline and the search's counts stay as detected) and kept only
+        where it still saves ``min_predicted_savings``.
+
+        The folded sets come from the detections' star groups, so the
+        pass extracts nothing; it compares them only where two classes
+        share a property of their SPs and an entity.  Entries scored by
+        Def. 4.8 (the ``complete`` objective) pass as detected."""
+        with obs.span("fold", entries=len(entries)) as sp:
+            out: list[ClassPlan] = []
+            folded: list[list] = []     # [entry, its folded ents or None]
+            rescored = 0
+
+            def members(entry):
+                ents = [g[0] for g in entry.detection.fsp]
+                return np.sort(np.concatenate(ents)) if ents else \
+                    np.empty((0,), np.int32)
+
+            for e in entries:
+                if e.detection is None or \
+                        e.detection.baseline_edges is None:
+                    out.append(e)
+                    continue
+                ents = store.entities_of_class(e.class_id)
+                earlier = [f for f in folded
+                           if set(f[0].props) & set(e.props)
+                           and in_sorted(ents, store.entities_of_class(
+                               f[0].class_id)).any()]
+                if earlier:
+                    for f in earlier:
+                        if f[1] is None:
+                            f[1] = members(f[0])
+                    e = self._rescore(e, np.unique(np.concatenate(
+                        [f[1] for f in earlier])))
+                    rescored += 1
+                    if e is None:
+                        continue
+                out.append(e)
+                folded.append([e, None])
+            sp.set(rescored=rescored, dropped=len(entries) - len(out))
+        return out
+
+    def _rescore(self, entry: ClassPlan, gone: np.ndarray
+                 ) -> ClassPlan | None:
+        """``entry`` scored on its folded entities outside the sorted
+        ``gone``; None where it no longer saves enough."""
+        det = entry.detection
+        groups = det.fsp
+        sizes = np.array([g[0].shape[0] for g in groups], np.int64)
+        ents = np.concatenate([g[0] for g in groups]) if groups else \
+            np.empty((0,), np.int32)
+        left = ~in_sorted(ents, gone)
+        bounds = np.concatenate([[0], np.cumsum(sizes)])
+        per_group = (np.add.reduceat(left.astype(np.int64), bounds[:-1])
+                     if groups else sizes)
+        a, n_e = int((per_group > 0).sum()), int(left.sum())
+        edges = int(folded_edges(a, n_e, len(entry.props),
+                                 entry.baseline_edges))
+        if entry.baseline_edges - edges < self.min_predicted_savings:
+            return None
+        fsp = [(g[0][left[lo:hi]], g[1])
+               for g, lo, hi, m in zip(groups, bounds[:-1], bounds[1:],
+                                       per_group) if m]
+        det = dataclasses.replace(det, edges=edges, ami=a, fsp=fsp)
+        return dataclasses.replace(entry, predicted_edges=edges,
+                                   detection=det)
 
     # -- execution ---------------------------------------------------------
     def execute(self, store: TripleStore, plan: CompactionPlan, *,
@@ -633,11 +713,13 @@ class CompactionPlanner:
         proportional to the dirty-class set: ``EXEC_STATS`` descent and
         lowering deltas are recorded on the report.
 
-        The pass is guarded on REALIZED edges: predicted Def. 4.8
-        savings are computed on the candidate population (complete
-        functional molecules, §4.3), so a re-plan can look profitable
-        yet cost more actual triples once incomplete entities fall back
-        to raw form.  If the rebuilt graph carries more triples than the
+        The pass is guarded on REALIZED edges: under the ``complete``
+        objective predicted Def. 4.8 savings are computed on the
+        candidate population (complete functional molecules, §4.3), so a
+        re-plan can look profitable yet cost more actual triples once
+        incomplete entities fall back to raw form (the default, folded
+        objective predicts the rows the factorization removes).  If the
+        rebuilt graph carries more triples than the
         current one, the pass is rejected -- the old snapshot stays live
         (``report.rejected``), so an online re-detection can only ever
         improve or hold the realized edge count, never regress it.

@@ -649,17 +649,17 @@ class CompressedGraphIndex(GraphIndex):
             self._props_cache[class_id] = props
         return props
 
-    def _object_matrix(self, class_id: int, props: np.ndarray,
-                       strict: bool) -> tuple[np.ndarray, np.ndarray]:
+    def _object_counts(self, class_id: int, props: np.ndarray
+                       ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
         """Same semantics as the plain index, but the join streams ONE
         predicate partition at a time into the (|C|, |SP|) output --
         transient decode is bounded by the largest single partition, not
         the sum over SP."""
         ents = self.entities_of_class(class_id)
-        if ents.size == 0 or props.size == 0:
-            return ents[:0], np.empty((0, props.size), np.int32)
         objmat = np.full((ents.size, props.size), -1, dtype=np.int32)
         counts = np.zeros((ents.size, props.size), np.int64)
+        if ents.size == 0:
+            return ents, objmat, counts
         for j, p in enumerate(props.tolist()):
             i = self._pred_pos(p)
             if i is None:
@@ -671,13 +671,7 @@ class CompressedGraphIndex(GraphIndex):
             ei = idx_c[hit]
             counts[:, j] += np.bincount(ei, minlength=ents.size)
             objmat[ei, j] = objs[hit]
-        complete = (counts == 1).all(axis=1)
-        if strict and not complete.all():
-            bad = ents[~complete]
-            raise ValueError(
-                f"{bad.size} entities of class {class_id} violate the "
-                "complete-molecule/functional-property assumption")
-        return ents[complete], objmat[complete]
+        return ents, objmat, counts
 
     def labeled_edge_count(self, class_id: int, props=None) -> int:
         ents = self.entities_of_class(class_id)

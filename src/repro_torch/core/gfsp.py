@@ -27,6 +27,10 @@ class FSPResult:
     evaluations: int                # subset evaluations performed
     exec_time_ms: float
     fsp: list[tuple[np.ndarray, np.ndarray]]  # star patterns: (entities, objects)
+    # the class's (e, p, o) rows over S where the detector scored the
+    # entities SP folds (``folded`` objective); None for Def. 4.8, whose
+    # baseline is AM * |S|
+    baseline_edges: int | None = None
 
     @property
     def n_fsp(self) -> int:

@@ -336,16 +336,43 @@ class GraphIndex:
         """
         props = np.asarray(list(props), dtype=np.int32)
         with obs.span("extract", cols=int(props.size)) as sp:
-            ents, objmat = self._object_matrix(class_id, props, strict)
-            sp.set(rows=int(ents.shape[0]))
+            ents, objmat, counts = self._object_counts(class_id, props)
+            complete = (counts == 1).all(axis=1) & (props.size > 0)
+            if strict and not complete.all():
+                raise ValueError(
+                    f"{int((~complete).sum())} entities of class {class_id} "
+                    "violate the complete-molecule/functional-property "
+                    "assumption")
+            ents, objmat = ents[complete], objmat[complete]
+            sp.set(rows=int(ents.shape[0]), complete=int(ents.shape[0]))
         return ents, objmat
 
-    def _object_matrix(self, class_id: int, props: np.ndarray,
-                       strict: bool) -> tuple[np.ndarray, np.ndarray]:
+    def object_table(self, class_id: int, props
+                     ) -> tuple[np.ndarray, np.ndarray, np.ndarray,
+                                np.ndarray]:
+        """Every entity of the class over ``props``, complete or not:
+        ``(entities, objects, one, n_p)`` with ``one[i, j]`` true where
+        entity i has exactly one object for ``props[j]`` (then
+        ``objects[i, j]`` is it; elsewhere the cell is -1 or one of its
+        objects), and ``n_p[j]`` the class's (e, props[j], o) rows.  The
+        same gather as :meth:`object_matrix`."""
+        props = np.asarray(list(props), dtype=np.int32)
+        with obs.span("extract", cols=int(props.size)) as sp:
+            ents, objmat, counts = self._object_counts(class_id, props)
+            one = counts == 1
+            sp.set(rows=int(ents.shape[0]),
+                   complete=int(one.all(axis=1).sum()))
+        return ents, objmat, one, counts.sum(axis=0)
+
+    def _object_counts(self, class_id: int, props: np.ndarray
+                       ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """(entities, objects, counts) of every entity of the class:
+        ``counts[i, j]`` objects of ``props[j]`` on entity i, one of
+        which is ``objects[i, j]`` (-1 where it has none)."""
         ents = self.entities_of_class(class_id)
-        if ents.size == 0 or props.size == 0:
-            return ents[:0], np.empty((0, props.size), np.int32)
         objmat = np.full((ents.size, props.size), -1, dtype=np.int32)
+        if ents.size == 0 or props.size == 0:
+            return ents, objmat, np.zeros(objmat.shape, np.int64)
         counts = np.zeros((ents.size, props.size), np.int64)
         # locate every predicate's extent in the offset table at once
         pi = np.searchsorted(self.preds, props)
@@ -368,13 +395,7 @@ class GraphIndex:
                 minlength=ents.size * props.size,
             ).reshape(ents.size, props.size)
             objmat[ei, cj] = sub[hit, 2]
-        complete = (counts == 1).all(axis=1)
-        if strict and not complete.all():
-            bad = ents[~complete]
-            raise ValueError(
-                f"{bad.size} entities of class {class_id} violate the "
-                "complete-molecule/functional-property assumption")
-        return ents[complete], objmat[complete]
+        return ents, objmat, counts
 
     def labeled_edge_count(self, class_id: int, props=None) -> int:
         """NLE restricted to class C (paper §5): membership counts per

@@ -14,6 +14,17 @@ Given a class ``C`` with property set ``S`` and a candidate subset
 
       AMI_G(SP|C) * (|SP| + 1)  +  AM_G(C) * |S - SP|
 
+The detectors score SP on the entities its factorization folds
+(:func:`folded_edges`): E(SP), C's entities with exactly one object for
+every property of SP, AMI over them, and with n_p C's (e, p, o) rows,
+
+      AMI * (|SP| + 1)  +  sum_{p in S} n_p  -  |E(SP)| * |SP|
+
+against the baseline sum_{p in S} n_p.  Def. 4.8 is its case of a class
+whose properties are all functional and complete (n_p = AM, E(SP) every
+entity); elsewhere Def. 4.8 predicts savings the factorization cannot
+make.
+
 Both a numpy host path and a torch device path are provided.  The device
 path works on fixed-shape object matrices on the tensor's own device:
 row signature -> sort -> segment count, with the hand CUDA kernels on a
@@ -90,17 +101,20 @@ def ami(objmat: np.ndarray) -> int:
     return int(row_groups(objmat)[1].shape[0])
 
 
+def folded_edges(ami_value, n_e, n_sp, total):
+    """#Edges(SP, C, G) scored on the entities SP folds: ``ami_value``
+    molecules of ``n_sp`` arms and a type edge each, plus the class's
+    ``total`` (e, p, o) rows over S less the ``n_e * n_sp`` arms of the
+    ``n_e`` folded entities.  Elementwise over aligned ints, arrays or
+    tensors."""
+    return ami_value * (n_sp + 1) + total - n_e * n_sp
+
+
 def num_edges(ami_value: int, am: int, n_sp: int, n_s: int) -> int:
-    """#Edges(SP, C, G) -- Def. 4.8 / Formula 1."""
-    return int(ami_value) * (n_sp + 1) + int(am) * (n_s - n_sp)
-
-
-def num_edges_batch(amis, am: int, n_sp, n_s: int) -> np.ndarray:
-    """Vectorized Def. 4.8 over aligned (C,) candidate arrays of AMI and
-    |SP'|; returns (C,) int64 #Edges."""
-    amis = np.asarray(amis, np.int64)
-    n_sp = np.asarray(n_sp, np.int64)
-    return amis * (n_sp + 1) + int(am) * (int(n_s) - n_sp)
+    """#Edges(SP, C, G) -- Def. 4.8 / Formula 1: :func:`folded_edges` with
+    every entity folded and ``AM * |S|`` rows."""
+    am = int(am)
+    return int(folded_edges(int(ami_value), am, n_sp, am * n_s))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -213,4 +227,4 @@ def multiplicities_device(objmat: torch.Tensor,
 def edges_formula_device(ami_value, am, n_sp, n_s):
     """Def. 4.8 on tensors (or ints): ``AMI * (|SP| + 1) + AM * |S - SP|``,
     elementwise where its arguments are aligned stacks."""
-    return ami_value * (n_sp + 1) + am * (n_s - n_sp)
+    return folded_edges(ami_value, am, n_sp, am * n_s)

@@ -25,6 +25,19 @@ A :class:`SweepWorkspace` holds one class's descent:
   launch of a given ``(n_b, k_b, c_b)`` shape; ``TRACE_COUNTS`` records
   one entry per such shape, and ``EXEC_STATS`` counts launched batches
   ("lowerings") against logical sweeps ("descents").
+* **one entity set per candidate, without a (C, N) mask**: under the
+  ``folded`` objective (the default; ``star.folded_edges``) a candidate
+  SP is scored on E(SP), the entities with exactly one object for every
+  property of SP.  The workspace extracts every entity of the class, and
+  the device parent holds ``-(row + 1)`` wherever an entity has zero or
+  several objects: no real id is negative, so a row with such a cell
+  among a candidate's columns is a group of its own, and AMI over E(SP)
+  is the kernel's group count less ``N - |E(SP)|``.  |E(SP)| is a
+  function of the mask alone, counted on the host from the distinct
+  patterns of incomplete columns.  A class whose entities are all
+  complete and functional uploads no sentinel and runs the plain route.
+  The ``complete`` objective scores Def. 4.8 on the entities complete
+  over S, as the JAX package does.
 """
 from __future__ import annotations
 
@@ -34,9 +47,22 @@ import numpy as np
 import torch
 
 from .. import obs
-from .star import (StarSweepResult, ami, ami_device_batch, num_edges,
-                   num_edges_batch)
+from .star import StarSweepResult, ami, ami_device_batch, folded_edges, \
+    row_groups
 from .triples import TripleStore
+
+# what a candidate SP is scored on: ``folded``, the entities SP folds
+# (Σ n_p, |E(SP)|), or ``complete``, Def. 4.8 over the entities complete
+# over S
+OBJECTIVES = ("folded", "complete")
+
+
+def check_objective(objective: str) -> str:
+    """``objective``, or ValueError where it is not one of OBJECTIVES."""
+    if objective not in OBJECTIVES:
+        raise ValueError(f"objective must be one of {OBJECTIVES}, got "
+                         f"{objective!r}")
+    return objective
 
 # -- bucket ladder -----------------------------------------------------------
 
@@ -142,27 +168,30 @@ def lowerings_per_descent() -> float:
 # -- the bucket sweep ----------------------------------------------------------
 
 def bucket_sweep(parent: torch.Tensor, valid: torch.Tensor,
-                 col_masks: torch.Tensor, am: int, n_s: int
-                 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(edges, amis) of a ``(c_b, k_b)`` 0/1 candidate stack over the
-    ``(n_b, k_b)`` parent, both (c_b,) int64 on the parent's device."""
+                 col_masks: torch.Tensor) -> torch.Tensor:
+    """The distinct valid rows of each candidate of a ``(c_b, k_b)`` 0/1
+    stack over the ``(n_b, k_b)`` parent, (c_b,) int64 on the parent's
+    device."""
     _note_trace("sweep", tuple(parent.shape) + (col_masks.shape[0],))
-    amis = ami_device_batch(parent, valid=valid,
+    return ami_device_batch(parent, valid=valid,
                             col_masks=col_masks).to(torch.int64)
-    n_sp = col_masks.sum(dim=1, dtype=torch.int64)
-    edges = amis * (n_sp + 1) + am * (n_s - n_sp)
-    return edges, amis
 
 
 # -- selection rule ----------------------------------------------------------
 
 def pick_child(current: StarSweepResult, edges: np.ndarray,
-               amis: np.ndarray, n_s: int, am: int
+               amis: np.ndarray, n_s: int, am: int,
+               n_e: np.ndarray | None = None
                ) -> tuple[StarSweepResult, int]:
-    """Shared selection rule: first AMI == 1 candidate (paper Alg. 2
-    lines 14-18), else minimum #Edges, first index breaking ties.
-    Returns the child result and the dropped position ``j``."""
-    single = np.where(amis == 1)[0]
+    """Shared selection rule: first AMI == 1 candidate that folds every
+    entity (paper Alg. 2 lines 14-18; ``n_e`` the entities each
+    candidate scores, all of them where None), else minimum #Edges,
+    first index breaking ties.  Returns the child result and the dropped
+    position ``j``."""
+    ones = amis == 1
+    if n_e is not None:
+        ones &= np.asarray(n_e) == am
+    single = np.flatnonzero(ones)
     j = int(single[0]) if single.size else int(np.argmin(edges))
     child_props = tuple(p for i, p in enumerate(current.props) if i != j)
     child = StarSweepResult(props=child_props, ami=int(amis[j]), am=am,
@@ -182,13 +211,24 @@ class SweepWorkspace(Protocol):
     commits the drop.  ``sweep_candidates(col_masks)`` evaluates an
     arbitrary ``(C, |S|)`` 0/1 stack of column selections over the FULL
     extracted property list and returns ``(edges, amis)`` aligned with it.
+    ``scored_entities(col_masks)`` gives each candidate's |E(SP)| as the
+    objective counts it, ``active_mask()`` the current SP and
+    ``drop_one_masks()`` the stack ``sweep()`` evaluates.  ``total`` is
+    the class's baseline, Σ n_p over S.
     """
 
     n_s: int
     am: int
+    total: int
 
     @property
     def props(self) -> tuple[int, ...]: ...
+
+    def scored_entities(self, col_masks) -> np.ndarray: ...
+
+    def active_mask(self) -> np.ndarray: ...
+
+    def drop_one_masks(self) -> np.ndarray: ...
 
     def evaluate_current(self) -> StarSweepResult: ...
 
@@ -204,13 +244,30 @@ class _WorkspaceBase:
     """Shared extraction + bookkeeping: one index-join per descent."""
 
     def __init__(self, store: TripleStore, class_id: int,
-                 props: Sequence[int], n_s: int, am: int) -> None:
+                 props: Sequence[int], n_s: int, am: int,
+                 objective: str = "folded") -> None:
         self.class_id = int(class_id)
         self.n_s = int(n_s)
         self.am = int(am)
+        self.objective = check_objective(objective)
         self._all_props = tuple(int(p) for p in props)
-        self.entities, self.matrix = store.object_matrix(
-            class_id, self._all_props)
+        ents, mat, one, n_p = store.object_table(class_id, self._all_props)
+        if objective == "complete":
+            keep = one.all(axis=1)
+            ents, mat, one = ents[keep], mat[keep], one[keep]
+            self.total = self.am * self.n_s
+        else:
+            self.total = int(n_p.sum())
+        self.entities, self.matrix = ents, mat
+        # rows with a column that is not exactly one object, and the
+        # distinct patterns of such columns with their row counts: None
+        # where every row is complete (the plain route)
+        self._one = self._patterns = None
+        if not one.all():
+            self._one = one
+            bad = ~one[~one.all(axis=1)]
+            _, counts, rep = row_groups(bad.astype(np.int32))
+            self._patterns = (bad[rep].astype(np.int64), counts)
         self._active = list(range(len(self._all_props)))
 
     @property
@@ -221,15 +278,52 @@ class _WorkspaceBase:
     def k(self) -> int:
         return len(self._active)
 
+    def _kept(self, masks: np.ndarray) -> np.ndarray:
+        """(C,) rows of the matrix in E(SP) of each 0/1 candidate row."""
+        n = self.matrix.shape[0]
+        if self._patterns is None:
+            return np.full(masks.shape[0], n, np.int64)
+        pats, counts = self._patterns
+        lost = (pats @ masks.T.astype(np.int64)) > 0       # (P, C)
+        return n - counts @ lost
+
+    def _scored(self, kept: np.ndarray) -> np.ndarray:
+        """The |E(SP)| the objective scores: the rows kept, or AM where
+        Def. 4.8 folds every entity."""
+        return kept if self.objective == "folded" \
+            else np.full_like(kept, self.am)
+
+    def scored_entities(self, col_masks) -> np.ndarray:
+        return self._scored(self._kept(self._normalize_masks(col_masks)))
+
+    def active_mask(self) -> np.ndarray:
+        """The (1, |S|) mask of the current SP."""
+        mask = np.zeros((1, len(self._all_props)), np.int32)
+        mask[0, self._active] = 1
+        return mask
+
+    def drop_one_masks(self) -> np.ndarray:
+        """The (k, |S|) stack :meth:`sweep` evaluates, row j the active
+        columns less the j-th."""
+        masks = self._drop_one_stack(len(self._all_props))
+        return masks[np.asarray(self._active, np.int64)]
+
+    def _edges(self, amis, kept, n_sp) -> np.ndarray:
+        return folded_edges(np.asarray(amis, np.int64), self._scored(kept),
+                            np.asarray(n_sp, np.int64), self.total)
+
     def evaluate_current(self) -> StarSweepResult:
         # exact host arithmetic over the already-extracted parent matrix
         with obs.span("ami.host", rows=int(self.matrix.shape[0])):
-            a = 0
-            if self._active:
-                a = ami(self.matrix[:, self._active])
+            cols = self._active
+            mat = self.matrix[:, cols]
+            if self._one is not None:
+                mat = mat[self._one[:, cols].all(axis=1)]
+            a = ami(mat) if cols else 0
+        kept = np.array([mat.shape[0]], np.int64)
         return StarSweepResult(
             props=self.props, ami=a, am=self.am, n_total_props=self.n_s,
-            edges=num_edges(a, self.am, self.k, self.n_s))
+            edges=int(self._edges(a, kept, self.k)[0]))
 
     def descend(self, j: int) -> None:
         # pure bookkeeping: device buffers are untouched (the dropped
@@ -265,22 +359,25 @@ class HostSweepWorkspace(_WorkspaceBase):
     def sweep(self) -> tuple[np.ndarray, np.ndarray]:
         # no shape bucket to keep invariant on host: only the active
         # rows of the drop-one stack are evaluated
-        masks = self._drop_one_stack(len(self._all_props))
-        return self.sweep_candidates(masks[np.asarray(self._active)])
+        return self.sweep_candidates(self.drop_one_masks())
 
     def sweep_candidates(self, col_masks) -> tuple[np.ndarray, np.ndarray]:
         masks = self._normalize_masks(col_masks)
         EXEC_STATS["descents"] += 1
         n, k = self.matrix.shape
-        with obs.span("sweep", candidates=masks.shape[0], n_b=n, k_b=k):
+        with obs.span("sweep", candidates=masks.shape[0], n_b=n, k_b=k,
+                      rows=n) as sp:
+            kept = self._kept(masks)
             amis = np.empty((masks.shape[0],), np.int64)
             for i in range(masks.shape[0]):
                 cols = np.flatnonzero(masks[i])
+                mat = self.matrix[:, cols]
+                if self._one is not None:
+                    mat = mat[self._one[:, cols].all(axis=1)]
                 # zero surviving columns: every row is the same empty tuple
-                amis[i] = ami(self.matrix[:, cols]) if cols.size \
-                    else (1 if n else 0)
-            n_sp = (masks != 0).sum(axis=1)
-            edges = num_edges_batch(amis, self.am, n_sp, self.n_s)
+                amis[i] = ami(mat) if cols.size else (1 if n else 0)
+            edges = self._edges(amis, kept, masks.sum(axis=1))
+            sp.set(kept=int(kept.sum()))
         return edges, amis
 
 
@@ -293,9 +390,10 @@ class DeviceSweepWorkspace(_WorkspaceBase):
     host-side bookkeeping update, not a transfer.
     """
 
-    def __init__(self, store, class_id, props, n_s, am, *,
+    def __init__(self, store, class_id, props, n_s, am,
+                 objective: str = "folded", *,
                  device: torch.device | str = "cuda") -> None:
-        super().__init__(store, class_id, props, n_s, am)
+        super().__init__(store, class_id, props, n_s, am, objective)
         self.device = torch.device(device)
         self._dev = None            # uploaded lazily, on the first sweep
         self._valid = None
@@ -319,6 +417,10 @@ class DeviceSweepWorkspace(_WorkspaceBase):
         self.k_bucket = bucket_cols(k)
         buf = np.zeros((self.n_bucket, self.k_bucket), np.int32)
         buf[:n, :k] = self.matrix
+        if self._one is not None:
+            # a cell that is not exactly one object: unique to its row
+            sentinel = -1 - np.arange(n, dtype=np.int32)
+            np.copyto(buf[:n, :k], sentinel[:, None], where=~self._one)
         if place is not None:
             self._dev, self._valid = place(buf, np.arange(self.n_bucket) < n)
         else:
@@ -335,35 +437,37 @@ class DeviceSweepWorkspace(_WorkspaceBase):
         act = np.asarray(self._active)
         return edges[act], amis[act]
 
-    def _run_batch(self, stack: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    def _run_batch(self, stack: np.ndarray) -> np.ndarray:
         """One launch sequence over a (c_b, k_b) padded stack: the stack
-        is the only upload, and (edges, amis) come back in one copy."""
+        is the only upload, and the (c_b,) distinct valid rows come back
+        in one copy."""
         EXEC_STATS["lowerings"] += 1
-        edges, amis = bucket_sweep(
-            self._dev, self._valid, torch.from_numpy(stack).to(self.device),
-            self.am, self.n_s)
-        out = torch.stack([edges, amis]).cpu().numpy()
-        return out[0], out[1]
+        return bucket_sweep(self._dev, self._valid,
+                            torch.from_numpy(stack).to(self.device)
+                            ).cpu().numpy()
 
     def sweep_candidates(self, col_masks) -> tuple[np.ndarray, np.ndarray]:
         masks = self._normalize_masks(col_masks)
         EXEC_STATS["descents"] += 1
         n_cand, k_all = masks.shape
-        with obs.span("sweep", candidates=n_cand) as sp:
+        n = self.matrix.shape[0]
+        with obs.span("sweep", candidates=n_cand, rows=n) as sp:
             self._ensure_uploaded()
             sp.set(n_b=self.n_bucket, k_b=self.k_bucket)
-            edges_out = np.empty((n_cand,), np.int64)
-            amis_out = np.empty((n_cand,), np.int64)
+            amis = np.empty((n_cand,), np.int64)
             for lo in range(0, n_cand, MAX_SWEEP_CANDIDATES):
                 chunk = masks[lo:lo + MAX_SWEEP_CANDIDATES]
                 c_b = bucket_candidates(chunk.shape[0])
                 stack = np.zeros((c_b, self.k_bucket), np.int32)
                 stack[:chunk.shape[0], :k_all] = chunk
-                edges, amis = self._run_batch(stack)
-                m = chunk.shape[0]
-                edges_out[lo:lo + m] = edges[:m]
-                amis_out[lo:lo + m] = amis[:m]
-        return edges_out, amis_out
+                amis[lo:lo + chunk.shape[0]] = \
+                    self._run_batch(stack)[:chunk.shape[0]]
+            # each row outside E(SP) was a group of its own
+            kept = self._kept(masks)
+            amis -= n - kept
+            edges = self._edges(amis, kept, masks.sum(axis=1))
+            sp.set(kept=int(kept.sum()))
+        return edges, amis
 
 
 class ShardedSweepWorkspace(DeviceSweepWorkspace):
@@ -378,12 +482,14 @@ class ShardedSweepWorkspace(DeviceSweepWorkspace):
     apply inside each shard's signature launch.
     """
 
-    def __init__(self, store, class_id, props, n_s, am, *, mesh=None,
-                 plan=None, device="cuda") -> None:
+    def __init__(self, store, class_id, props, n_s, am,
+                 objective: str = "folded", *, mesh=None, plan=None,
+                 device="cuda") -> None:
         self.mesh = mesh
         self.plan = plan
         self.dp_axes: tuple = ()
-        super().__init__(store, class_id, props, n_s, am, device=device)
+        super().__init__(store, class_id, props, n_s, am, objective,
+                         device=device)
 
     def _placement(self, n_rows: int):
         if self.mesh is None:
@@ -407,15 +513,13 @@ class ShardedSweepWorkspace(DeviceSweepWorkspace):
                     shard_rows(valid, self.mesh, axes))
         return row_multiple, place
 
-    def _run_batch(self, stack: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    def _run_batch(self, stack: np.ndarray) -> np.ndarray:
         if self.mesh is None:
             return super()._run_batch(stack)
         from .distributed import ami_bucketed_batch
         EXEC_STATS["lowerings"] += 1
         _note_trace("sharded", (self.n_bucket, self.k_bucket,
                                 stack.shape[0]))
-        amis = ami_bucketed_batch(self._dev, self._valid, stack, self.mesh,
-                                  dp_axes=self.dp_axes).cpu().numpy()
-        n_sp = stack.sum(axis=1, dtype=np.int64)
-        amis = amis.astype(np.int64)
-        return num_edges_batch(amis, self.am, n_sp, self.n_s), amis
+        return ami_bucketed_batch(self._dev, self._valid, stack, self.mesh,
+                                  dp_axes=self.dp_axes
+                                  ).cpu().numpy().astype(np.int64)

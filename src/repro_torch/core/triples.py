@@ -301,6 +301,15 @@ class TripleStore:
         """
         return self.index.object_matrix(int(class_id), props, strict=strict)
 
+    def object_table(self, class_id: int, props: Sequence[int]
+                     ) -> tuple[np.ndarray, np.ndarray, np.ndarray,
+                                np.ndarray]:
+        """Every entity of the class over ``props``, with the mask of
+        exactly one object and the class's rows per property
+        (``GraphIndex.object_table``): what the detectors score a star on
+        where molecules are incomplete or properties multi-valued."""
+        return self.index.object_table(int(class_id), props)
+
     def labeled_edge_count(self, class_id: int,
                            props: Sequence[int] | None = None) -> int:
         """NLE: labeled edges annotated with class properties (paper §5)."""

@@ -456,7 +456,10 @@ def test_bgp_strategy_parity_property(R, n_ent, n_props, n_obj, n_cls, seed,
     store = TripleStore.from_triples(triples)
     assert store.spo.tobytes() == ref.spo.tobytes()
     jc = R.Compactor(min_predicted_savings=-10**9)
-    tc = Compactor(min_predicted_savings=-10**9)
+    # incomplete molecules and multi-typed entities: the JAX package's
+    # scoring is the port's complete objective
+    tc = Compactor(min_predicted_savings=-10**9,
+                   detector_opts={"objective": "complete"})
     jc.run(ref)
     tc.run(store)
     if with_deletes and store.n_triples:

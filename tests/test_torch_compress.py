@@ -14,6 +14,7 @@ from repro.core.triples import TermDict as JTermDict
 from repro.data import synthetic as jsyn
 from repro.query import QueryEngine as JQueryEngine
 from repro_torch.api import Compactor
+from repro_torch.convert import store_from_arrays
 from repro_torch.core import compress as tc
 from repro_torch.core import sweep
 from repro_torch.core.index import GraphIndex
@@ -245,6 +246,57 @@ def test_index_accessor_parity(tiers):
                 assert ci.labeled_edge_count(cid, props) == \
                     other.labeled_edge_count(cid, props)
     np.testing.assert_array_equal(ci.rows, pi.rows)
+
+
+def _ragged_store():
+    """A class whose properties are multi-valued (``takes``), optional
+    (``advisor``) and functional (``major``), some entities typed twice."""
+    rng = np.random.default_rng(5)
+    terms = ["rdf:type", "repro:instanceOf", "Student", "Worker", "major",
+             "takes", "advisor", *(f"v/{i}" for i in range(8)),
+             *(f"e/{i}" for i in range(120))]
+    ents = np.arange(15, 135)
+    rows = [np.stack([ents, np.zeros(120, int), np.full(120, 2)], 1),
+            np.stack([ents[:40], np.zeros(40, int), np.full(40, 3)], 1),
+            np.stack([ents, np.full(120, 4), 7 + rng.integers(0, 3, 120)], 1)]
+    takes = np.repeat(ents, rng.integers(1, 4, 120))
+    rows.append(np.stack([takes, np.full(len(takes), 5),
+                          7 + rng.integers(0, 8, len(takes))], 1))
+    adv = ents[rng.random(120) < 0.3]
+    rows.append(np.stack([adv, np.full(len(adv), 6),
+                          7 + rng.integers(0, 2, len(adv))], 1))
+    return store_from_arrays(terms, np.concatenate(rows))
+
+
+def test_object_table_parity_on_both_tiers(tiers):
+    """``object_table`` (every entity, its one-object mask and the rows
+    per property) reads the same off both tiers, on the workloads and on
+    a class with multi-valued and optional properties; the folded
+    objective then compacts the compressed store as the plain one."""
+    _, plain, comp, _ = tiers
+    ragged = _ragged_store()
+    for p_store, c_store in ((plain, comp), (ragged, ragged.compressed())):
+        for cid in p_store.classes().tolist():
+            props = p_store.class_properties(cid)
+            got = c_store.object_table(cid, props)
+            want = p_store.object_table(cid, props)
+            for a, b in zip(got, want):
+                np.testing.assert_array_equal(a, b)
+    ents, objs, one, n_p = ragged.object_table(2, [4, 5, 6])
+    assert one[:, 0].all() and not one[:, 1].all() and not one[:, 2].all()
+    assert n_p.tolist() == [ragged.labeled_edge_count(2, [p])
+                            for p in (4, 5, 6)]
+    for det in ("gfsp", "efsp"):
+        a = Compactor(det, "device", backend_opts={"device": "cpu"})
+        b = Compactor(det, "device", backend_opts={"device": "cpu"})
+        ra = a.run(ragged)
+        rb = b.run(ragged.compressed(), stream=True)
+        assert a.snapshot.digest() == b.snapshot.digest()
+        assert [(e.class_id, e.props, e.predicted_edges, e.baseline_edges)
+                for e in ra.plan] == \
+            [(e.class_id, e.props, e.predicted_edges, e.baseline_edges)
+             for e in rb.plan]
+        assert ra.plan
 
 
 def test_compressed_rows_and_accounting(tiers):

@@ -156,8 +156,11 @@ def test_mutation_sequence_matches_reference(R, name, config, backend):
     ref, store = _pair(R, name)
     jc = R.Compactor("gfsp", "host", min_predicted_savings=mps,
                      surrogate_prefix=prefix)
+    # the edits leave incomplete molecules: the port scores them as the
+    # JAX package does only under the complete objective
     tc = Compactor("gfsp", _backend(backend), min_predicted_savings=mps,
-                   surrogate_prefix=prefix)
+                   surrogate_prefix=prefix,
+                   detector_opts={"objective": "complete"})
     assert (tc.min_predicted_savings, tc.surrogate_prefix) == (mps, prefix)
     jc.run(ref)
     tc.run(store)

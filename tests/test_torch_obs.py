@@ -20,7 +20,7 @@ from repro_torch.data import synthetic as tsyn
 PARENTS = {
     "store.load": {None}, "plan": {None}, "execute": {None},
     "index.build": {"plan", "count"},
-    "detect": {"plan"},
+    "detect": {"plan"}, "fold": {"plan"},
     "extract": {"detect", "star_groups", "factorize"},
     "ami.host": {"detect"}, "sweep": {"detect"}, "star_groups": {"detect"},
     "factorize": {"execute"},
@@ -134,10 +134,16 @@ def test_the_span_tree_of_a_compaction(graph, backend):
     for r in recs:
         if r.name == "extract":
             assert r.attrs["rows"] >= 0 and r.attrs["cols"] >= 1
+            assert r.attrs["complete"] == r.attrs["rows"]
         if r.name == "ami.host":
             assert r.attrs["rows"] == by_id[r.parent_id].attrs["am"]
         if r.name == "sweep":
             assert r.attrs["candidates"] >= 1 and r.attrs["n_b"] >= 1
+            # a sensor graph's entities are all complete: every candidate
+            # keeps every row
+            assert r.attrs["kept"] == r.attrs["candidates"] * r.attrs["rows"]
+    (fold,) = [r for r in recs if r.name == "fold"]
+    assert fold.attrs == {"entries": len(plan), "rescored": 0, "dropped": 0}
     # the workspace's extraction pulls one row per complete entity
     for d in detects:
         ws = min((r for r in recs if r.name == "extract"
