@@ -18,6 +18,7 @@ from typing import Sequence
 import numpy as np
 
 from .. import obs
+from .index import csr_take
 from .star import row_groups
 from .triples import TripleStore
 
@@ -172,6 +173,78 @@ def apply_molecule_map(spo: np.ndarray, mu_keys: np.ndarray,
         [kept, inst_edges, sg_type_edges, sg_prop_edges], axis=0)
 
 
+def _splice(spo: np.ndarray, ents: np.ndarray, ent_sg: np.ndarray,
+            props_arr: np.ndarray, class_id: int, type_id: int,
+            instance_of_id: int, surrogate_ids: np.ndarray,
+            star_objects: np.ndarray) -> tuple[np.ndarray, int]:
+    """:func:`apply_molecule_map` followed by the sort and dedup, for
+    surrogates above every id of the graph: ``(G' rows, rows moved)``,
+    the rows sorted-unique with no sort of the graph.
+
+    The rows that change lie in the (s, p, o)-sorted runs of the class's
+    (sorted) entities ``ents``: each loses its ``(s type C)`` and SP rows
+    and gains ``(s instanceOf sg)``, whose place in the run follows every
+    row of predicate at most ``instanceOf`` (``sg`` is above every
+    object).  The rows kept come out in one index gather.  ``sg`` is
+    above every subject too, so the molecules' rows go at the tail, one
+    set per star pattern: the entities are complete and functional over
+    SP, so these are the distinct ``(sg type C)`` and ``(sg p o)`` rows
+    of the mapped ones."""
+    n, m = spo.shape[0], ents.shape[0]
+    lo = np.searchsorted(spo[:, 0], ents)
+    lens = np.searchsorted(spo[:, 0], ents, side="right") - lo
+    run = csr_take(lo, lens)
+    p, o = spo[run, 1], spo[run, 2]
+    # the moved rows, one comparison a property (an ``isin`` over the
+    # runs took several times longer)
+    moved = (p == type_id) & (o == class_id)
+    for prop in props_arr.tolist():
+        moved |= p == prop
+    ent = np.repeat(np.arange(m), lens)
+    below = p <= instance_of_id
+    # entity e's instanceOf row goes before row q[e] of the graph, after
+    # the e inserted before it: a row's place among both is its index,
+    # plus e, plus one past the instanceOf row
+    q = lo + np.bincount(ent[below], minlength=m)
+    q += np.arange(m)
+    at = run + ent + ~below
+    gone = at[moved]
+    # the body's slot of each inserted row, and of the row after each
+    # moved one: their place less the rows moved before them
+    ins_at = q - np.searchsorted(gone, q)
+    skip_at = gone - np.arange(gone.shape[0])
+    # so the body's source row at slot j is j, plus the moved rows whose
+    # next row is at j or before, less the rows inserted before j: a
+    # running sum of one a slot, less one at slot 0, plus those steps
+    body = n - gone.shape[0] + m
+    src = np.bincount(skip_at, minlength=body + 1)
+    src += 1
+    src[0] -= 1
+    src[ins_at + 1] -= 1
+    src = np.cumsum(src, out=src)[:body]
+    src[ins_at] = 0
+
+    # the molecules: the columns in ascending predicate id, the star
+    # patterns in ascending surrogate id
+    preds = np.append(props_arr, np.int32(type_id))
+    objs = np.concatenate(
+        [star_objects, np.full((star_objects.shape[0], 1), class_id,
+                               np.int32)], axis=1)
+    cols = np.argsort(preds)
+    groups = np.argsort(surrogate_ids)
+    k = preds.shape[0]
+    out = np.empty((body + groups.shape[0] * k, 3), np.int32)
+    np.take(spo, src, axis=0, out=out[:body])
+    out[ins_at, 0] = ents
+    out[ins_at, 1] = instance_of_id
+    out[ins_at, 2] = ent_sg
+    tail = out[body:].reshape(-1, k, 3)
+    tail[:, :, 0] = surrogate_ids[groups, None]
+    tail[:, :, 1] = preds[cols]
+    tail[:, :, 2] = objs[groups][:, cols]
+    return out, int(gone.shape[0])
+
+
 def _factorize(store: TripleStore, class_id: int, props: Sequence[int],
                surrogate_prefix: str = "repro:sg",
                surrogate_start: int = 0) -> FactorizationResult:
@@ -197,18 +270,33 @@ def _factorize_class(store, class_id, props, surrogate_prefix,
         inv, counts, rep = row_groups(objmat)
         n_groups = int(counts.shape[0])
         cname = store.dict.term(class_id)
+        base = len(store.dict)
         surrogate_ids = store.dict.ids(
             [f"{surrogate_prefix}/{cname}/{surrogate_start + g}"
              for g in range(n_groups)]).astype(np.int32)
         mu = dict(zip(ents.tolist(), surrogate_ids[inv].tolist()))
+        star_objects = objmat[rep]
         sp.set(groups=n_groups)
 
     # -- lines 8-29: rebuild the edge set, vectorized ----------------------
+    # surrogates minted now lie in no row: G' is the graph with the
+    # class's rows spliced; names minted before (a redetect re-minting
+    # them) may, and so may rdf:type as an SP property: then the mapped
+    # graph is sorted and deduped
     with obs.span("rewrite") as sp:
-        new_spo = apply_molecule_map(store.spo, ents, surrogate_ids[inv],
-                                     props_arr, class_id, store.TYPE,
-                                     store.INSTANCE_OF)
-        gprime = TripleStore.from_ids(store.dict, new_spo)  # dedups
+        if (surrogate_ids >= base).all() and store.TYPE not in props_arr:
+            new_spo, moved = _splice(
+                store.spo, ents, surrogate_ids[inv], props_arr, class_id,
+                store.TYPE, store.INSTANCE_OF, surrogate_ids, star_objects)
+            gprime = TripleStore.from_ids(store.dict, new_spo,
+                                          presorted=True)
+            sp.set(path="splice", moved=moved)
+        else:
+            new_spo = apply_molecule_map(store.spo, ents, surrogate_ids[inv],
+                                         props_arr, class_id, store.TYPE,
+                                         store.INSTANCE_OF)
+            gprime = TripleStore.from_ids(store.dict, new_spo)  # dedups
+            sp.set(path="sort")
         sp.set(rows=gprime.n_triples)
 
     nle_after, nn_after = _class_nle_nodes(gprime, class_id)
@@ -218,8 +306,7 @@ def _factorize_class(store, class_id, props, surrogate_prefix,
         n_triples_before=store.n_triples, n_triples_after=gprime.n_triples,
         nle_before=nle_before, nle_after=nle_after,
         nn_before=nn_before, nn_after=nn_after,
-        star_objects=objmat[rep] if n_groups else
-        np.empty((0, props_arr.size), np.int32))
+        star_objects=star_objects)
 
 
 def factorize_classes(store: TripleStore,

@@ -190,10 +190,9 @@ def csr_take(starts: np.ndarray, counts: np.ndarray) -> np.ndarray:
     object-matrix extraction, instanceOf-CSR member emission, and the
     query engine's subject joins."""
     counts = np.asarray(counts)
-    total = int(counts.sum())
-    within = np.arange(total) - np.repeat(np.cumsum(counts) - counts,
-                                          counts)
-    return np.repeat(starts, counts) + within
+    ends = np.cumsum(counts)
+    return np.repeat(starts - (ends - counts), counts) \
+        + np.arange(ends[-1] if counts.size else 0)
 
 
 def in_sorted(values: np.ndarray, sorted_ref: np.ndarray) -> np.ndarray:
